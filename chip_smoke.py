@@ -9,7 +9,12 @@ Phases (each prints its lines; any failure exits non-zero):
    native entropy library, from the sources in this checkout;
 3. kernel parity: me_refine and me_eval against their plain PyTorch
    versions at the 1080p shapes of the main path, bit-exact (tolerance
-   0), then the time of one B frame's launches of each, kernel and plain;
+   0), on synthetic frames and on tie-heavy planes; me_refine's time,
+   bound and blocks per SM per block size; then the time of one B
+   frame's launches of each kernel, and of its plain version. Bounds
+   take each kernel's operations at the rate of the pipe that runs them
+   (PIPE_LANES: float32 for me_refine, int32 for me_eval), from the
+   card's SM count and maximum SM clock;
 4. main path: 1 IDR + 3 B frames of a 1920x1080 synthetic sequence
    through kvazaar_tpu_torch.api.encode_sequence on cuda, with the kernel
    launch counters read around it; every B frame must code intra leaves
@@ -21,8 +26,10 @@ Phases (each prints its lines; any failure exits non-zero):
 The last lines are a JSON object of per-kernel numbers, the nvidia-smi
 name/power-limit line, and {"ok": true, "device": {...}}.
 
-The helpers mixed_frames, kernel_inputs, kernel_errors and
-compare_devices are shared with tests/test_torch_cuda.py and tools/.
+The helpers mixed_frames, kernel_inputs, tie_planes, tie_inputs,
+kernel_errors, compare_devices, open_device and phase_kernels are shared
+with tests/test_torch_cuda.py and tools/ (tools/me_bench.py runs phases
+1-3 alone).
 """
 from __future__ import annotations
 
@@ -35,11 +42,14 @@ import time
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
-# non-tensor-core float32 rate as the rate of CUDA-core arithmetic (these
-# kernels do int32 arithmetic, for which no peak is published beside it)
+# published H100 SXM HBM bandwidth (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+# Lanes per SM of a GH100 SM (Hopper architecture white paper) on the pipe
+# that runs each kernel's counted work, a multiply-add counted as 2:
+# me_refine does its filter, rounding, Hadamard and SAD arithmetic in
+# float32 (128 FP32 lanes, which is also the most an SM issues a clock on
+# any pipe), me_eval in int32 (64 INT32 lanes)
+PIPE_LANES = {"me_refine": ("fp32", 128), "me_eval": ("int32", 64)}
 # the main path's picture size
 W, H = 1920, 1080
 
@@ -47,6 +57,25 @@ W, H = 1920, 1080
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def smi(query: str, units: bool = True) -> str:
+    """First line of nvidia-smi --query-gpu=<query> (csv, no header)."""
+    fmt = "csv,noheader" + ("" if units else ",nounits")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          f"--format={fmt}"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip() if out else ""
+
+
+def ops_rates(torch) -> dict:
+    """Per kernel, the card's rate in operations a second on the pipe of
+    PIPE_LANES: SMs x lanes x 2 (a multiply-add counts as 2, as in
+    refine_work) x the SM's maximum clock (nvidia-smi clocks.max.sm)."""
+    mhz = float(smi("clocks.max.sm", units=False))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {name: sms * lanes * 2 * mhz * 1e6
+            for name, (_, lanes) in PIPE_LANES.items()}
 
 
 def synth_frames(n, w, h):
@@ -104,6 +133,31 @@ def kernel_inputs(ref, src, n, K, gen):
     mvs = torch.randint(-400, 401, (L, 2), generator=gen,
                         dtype=torch.int32).to(ref.device)
     return blocks, cands, mvs, cols
+
+
+def tie_planes(h, w):
+    """Tie-heavy (name, plane, lam64) cases for me_refine, where many of
+    the 49 integer and 49 quarter-pel offsets cost exactly the same, so
+    the strict-< scan order decides: a flat plane with lam64 0, and
+    vertical stripes (period 2 across, 1 down) with lam64 0 and 153 (the
+    prior then ties the mirrored offsets only). The source is the plane
+    itself."""
+    xx = np.arange(w)[None, :].repeat(h, 0)
+    stripes = (60 + 120 * (xx & 1)).astype(np.int32)
+    return [("flat", np.full((h, w), 117, np.int32), 0),
+            ("stripes", stripes, 0), ("stripes_lam", stripes, 153)]
+
+
+def tie_inputs(plane, n, K, gen, device):
+    """kernel_inputs on a tie_planes plane (as reference and source) with
+    every block's candidates coinciding in pairs (cands[:, 2j + 1] =
+    cands[:, 2j]), so whole candidates tie too. Returns (ref, blocks,
+    cands, mvs, cols)."""
+    import torch
+    ref = torch.from_numpy(plane).to(device)
+    blocks, cands, mvs, cols = kernel_inputs(ref, ref, n, K, gen)
+    cands[:, 1::2] = cands[:, 0:K - K % 2:2]
+    return ref, blocks, cands, mvs, cols
 
 
 def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols):
@@ -170,12 +224,12 @@ def eval_work(n, L, hp, wp):
     return nbytes, L * per_block
 
 
-def bound_ms(works):
+def bound_ms(works, ops_rate):
     """Least time of a set of calls: per call the larger of bytes over
-    the memory rate and operations over the arithmetic rate."""
+    the memory rate and operations over ops_rate (from ops_rates)."""
     tot, by_bytes, by_ops = 0.0, 0.0, 0.0
     for nbytes, ops in works:
-        tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+        tb, to = nbytes / PEAK_BYTES_S, ops / ops_rate
         tot += max(tb, to)
         by_bytes += tb
         by_ops += to
@@ -197,9 +251,12 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_kernels(me, torch):
+def phase_kernels(me, torch, rates):
     """Bit-exact parity of both kernels with their plain versions at the
-    slice's 1080p shapes, then their times for one B frame's launches."""
+    slice's 1080p shapes, on the synthetic frames and on the tie-heavy
+    planes; me_refine's time, bound and blocks per SM per block size;
+    then both kernels' times for one B frame's launches (me_refine's as
+    the sum of its per-size times). rates: ops_rates."""
     hp, wp = H + (-H) % 64, W + (-W) % 64
     frames = synth_frames(2, wp, hp)
     ref = torch.from_numpy(frames[0][0].astype(np.int32)).cuda()
@@ -216,42 +273,67 @@ def phase_kernels(me, torch):
         print(f"parity n={n} L={blocks.shape[0]} K={K}: max_abs_err "
               f"me_refine {e['me_refine']}, me_eval (hi off and on) "
               f"{e['me_eval']}", flush=True)
+        for name, plane, lam_t in tie_planes(hp, wp):
+            t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(
+                plane, n, K, gen, "cuda")
+            e = kernel_errors(me, t_ref, t_blocks, t_cands, t_mvs,
+                              torch.tensor([lam_t], dtype=torch.int32,
+                                           device="cuda"), n, cols)
+            err = {k: max(v, e[k]) for k, v in err.items()}
+            print(f"parity n={n} tie-heavy {name} (lam64 {lam_t}): "
+                  f"max_abs_err me_refine {e['me_refine']}, me_eval "
+                  f"{e['me_eval']}", flush=True)
         # one B frame: me_refine per list (2) and size; me_eval 12 per size
         ref_calls += [(n, cols, blocks, cands)] * 2
         eval_calls += [(n, cols, blocks, mvs)] * 12
     if any(err.values()):
         fail(f"kernel/plain mismatch {err}")
+    refine_ms = 0.0
+    for n in (8, 16, 32, 64):
+        calls = [c for c in ref_calls if c[0] == n]
+
+        def k():
+            for _, cols, blocks, c in calls:
+                me.me_refine(ref, blocks, c, lam, n=n, cols=cols)
+        ms = cuda_ms(k, 10)
+        refine_ms += ms
+        b_ms, b_by = bound_ms([refine_work(n, b.shape[0], c.shape[1], hp, wp)
+                               for _, _, b, c in calls], rates["me_refine"])
+        occ = me.me_refine_occupancy(n)
+        print(f"me_refine n={n}: {len(calls)} launches {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}; {occ['blocks_per_sm']} blocks per "
+              f"SM of {occ['threads']} threads ({occ['sources']} source "
+              f"blocks each), {occ['smem']} B shared, {occ['regs']} "
+              f"registers, {occ['local']} B local", flush=True)
+
+    def refine_plain():
+        for n, cols, blocks, c in ref_calls:
+            me.me_refine_plain(ref, blocks, c, lam, n, cols)
+
+    def eval_kernel():
+        for n, cols, blocks, m in eval_calls:
+            me.me_eval(ref, blocks, m, n=n, cols=cols, hi=True)
+
+    def eval_plain():
+        for n, cols, blocks, m in eval_calls:
+            me.me_eval_plain(ref, blocks, m, n, cols, True)
+    timed = {
+        "me_refine": (refine_ms, refine_plain,
+                      [refine_work(n, blocks.shape[0], c.shape[1], hp, wp)
+                       for n, _, blocks, c in ref_calls]),
+        "me_eval": (cuda_ms(eval_kernel, 10), eval_plain,
+                    [eval_work(n, blocks.shape[0], hp, wp)
+                     for n, _, blocks, _ in eval_calls])}
     out = {}
-    for name in ("me_refine", "me_eval"):
-        if name == "me_refine":
-            def k():
-                for n, cols, blocks, c in ref_calls:
-                    me.me_refine(ref, blocks, c, lam, n=n, cols=cols)
-
-            def p():
-                for n, cols, blocks, c in ref_calls:
-                    me.me_refine_plain(ref, blocks, c, lam, n, cols)
-            works = [refine_work(n, blocks.shape[0], c.shape[1], hp, wp)
-                     for n, _, blocks, c in ref_calls]
-        else:
-            def k():
-                for n, cols, blocks, m in eval_calls:
-                    me.me_eval(ref, blocks, m, n=n, cols=cols, hi=True)
-
-            def p():
-                for n, cols, blocks, m in eval_calls:
-                    me.me_eval_plain(ref, blocks, m, n, cols, True)
-            works = [eval_work(n, blocks.shape[0], hp, wp)
-                     for n, _, blocks, _ in eval_calls]
-        ms = cuda_ms(k, 3)
-        plain_ms = cuda_ms(p, 1)
-        b_ms, b_by = bound_ms(works)
+    for name, (ms, plain, works) in timed.items():
+        plain_ms = cuda_ms(plain, 1)
+        b_ms, b_by = bound_ms(works, rates[name])
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=err[name],
                          calls=len(works))
         print(f"time {name}: one B frame's {len(works)} launches "
               f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"by {b_by})", flush=True)
+              f"by {b_by}, {PIPE_LANES[name][0]} rate)", flush=True)
     return out
 
 
@@ -340,29 +422,40 @@ def phase_device_parity():
         fail("cuda and CPU encodes differ")
 
 
-def main() -> None:
-    import torch
+def open_device(torch):
+    """Fail where there is no card or no port beside this script; print
+    the device line and each kernel's operations rate. Returns (me, kind,
+    name_limit, rates), me being kvazaar_tpu_torch.ops.me and rates
+    ops_rates."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import kvazaar_tpu_torch  # noqa: F401  (sets TF32 off)
-        from kvazaar_tpu_torch import native
         from kvazaar_tpu_torch.ops import me
     except ImportError as e:
         fail(f"kvazaar_tpu_torch is not importable here: {e}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    smi = smi[0] if smi else "nvidia-smi: no output"
+    name_limit = smi("name,power.limit") or "nvidia-smi: no output"
     kind = torch.cuda.get_device_name(0)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    print(f"device: {kind} ({smi}); torch {torch.__version__} cuda "
+    print(f"device: {kind} ({name_limit}); torch {torch.__version__} cuda "
           f"{torch.version.cuda}; tf32 matmul/cudnn {tf32}", flush=True)
     if any(tf32):
         fail("TF32 must be off")
+    rates = ops_rates(torch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (pipe, lanes) in PIPE_LANES.items():
+        print(f"{pipe} rate ({name}): {rates[name]:.4e} operations/s ("
+              f"{sms} SMs x {lanes} {pipe.upper()} lanes x 2 at "
+              f"clocks.max.sm {smi('clocks.max.sm')})", flush=True)
+    return me, kind, name_limit, rates
+
+
+def main() -> None:
+    import torch
+    me, kind, name_limit, rates = open_device(torch)
+    from kvazaar_tpu_torch import native
 
     t0 = time.perf_counter()
     errs = []
@@ -382,7 +475,7 @@ def main() -> None:
           f"native entropy coder in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    kern = phase_kernels(me, torch)
+    kern = phase_kernels(me, torch, rates)
     launches = phase_main(torch, me)
     phase_device_parity()
 
@@ -400,7 +493,7 @@ def main() -> None:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
-    print(smi)
+    print(name_limit)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -242,6 +242,8 @@ def _lib(name: str):
         # stream
         fn.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, ci, ci,
                        vp, vp, vp, vp]
+        lib.kvz_me_refine_info.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.kvz_me_refine_info.restype = ci
     else:
         # ref, H, W, src, mvs, L, n, cols, maxv, hi, satd, pred, stream
         fn.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
@@ -284,10 +286,19 @@ def me_refine(ref, src_blocks, cands, lam64, *, n: int, cols: int,
     K = cands.shape[1] if cands.dim() == 3 else -1
     _check(cands, "cands", (L, K, 2), dev)
     _check(lam64, "lam64", (1,), dev)
+    if K * 49 > 1 << 16:
+        # the kernel's argmin keys hold the scan position c * 49 + o in
+        # 16 bits (cost_key in csrc/me_refine.cu)
+        raise ValueError(f"me_refine takes at most {(1 << 16) // 49} "
+                         f"candidates per block, got {K}")
     if dev.type == "cpu":
         return me_refine_plain(ref, src_blocks, cands, lam64, n, cols, maxv)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if not 0 <= maxv <= 1023:
+        # the kernel's float32 sub-pel sweep is exact up to 10 bits
+        raise ValueError(f"me_refine kernel takes maxv up to 1023, "
+                         f"got {maxv}")
     fn = _lib("me_refine").kvz_me_refine
     mv = torch.empty((L, 2), dtype=torch.int32, device=dev)
     satd = torch.empty((L,), dtype=torch.int32, device=dev)
@@ -301,6 +312,20 @@ def me_refine(ref, src_blocks, cands, lam64, *, n: int, cols: int,
         raise RuntimeError(f"me_refine launch failed: CUDA error {err}")
     me_refine.launches += 1
     return mv, satd, pred
+
+
+def me_refine_occupancy(n: int) -> dict:
+    """Launch geometry of me_refine's size-n kernel on the current card:
+    blocks per SM that its launch achieves, threads and source blocks per
+    block, dynamic shared bytes per block, registers and local (spill)
+    bytes per thread."""
+    lib = _lib("me_refine")
+    out = (ctypes.c_int * 6)()
+    err = lib.kvz_me_refine_info(n, out)
+    if err != 0:
+        raise RuntimeError(f"me_refine_info failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "threads", "sources", "smem", "regs",
+                     "local"), out))
 
 
 def me_eval(ref, src_blocks, mvs, *, n: int, cols: int, hi: bool,

@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (compare_devices, kernel_errors,  # noqa: E402
-                        kernel_inputs, mixed_frames)
+                        kernel_inputs, mixed_frames, tie_inputs,
+                        tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -27,7 +28,9 @@ def _need_cuda():
 @pytest.mark.parametrize("n", [8, 16, 32, 64])
 def test_kernels_match_plain(n):
     """Both kernels bit-exact with their plain versions, candidates and
-    MVs reaching far outside the picture (index clamping)."""
+    MVs reaching far outside the picture (index clamping), on random
+    content and on the tie-heavy planes (flat, stripes; candidates
+    coinciding in pairs), where the strict-< scan order decides."""
     dev = _need_cuda()
     rng = np.random.RandomState(n)
     ref = torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.int32))
@@ -43,6 +46,14 @@ def test_kernels_match_plain(n):
     assert (me.me_refine.launches, me.me_eval.launches) == \
         (before[0] + 1, before[1] + 2)
     assert err == {"me_refine": 0, "me_eval": 0}
+    for name, plane, lam64 in tie_planes(H, W):
+        t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(plane, n, 5, gen,
+                                                        dev)
+        err = kernel_errors(me, t_ref, t_blocks, t_cands, t_mvs,
+                            torch.tensor([lam64], dtype=torch.int32,
+                                         device=dev), n, cols)
+        assert err == {"me_refine": 0, "me_eval": 0}, name
+    assert me.me_refine_occupancy(n)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda

@@ -116,3 +116,111 @@ def test_wrappers_reject_bad_inputs(bad):
         kw["n"] = 12
     with pytest.raises((TypeError, ValueError)):
         me.me_eval(ref, blocks, mvs, **kw)
+
+
+def test_me_refine_rejects_more_candidates_than_keys_hold():
+    """The kernel's argmin keys hold c * 49 + o in 16 bits: the wrapper
+    takes 1337 candidates per block and refuses 1338, on every device."""
+    ref = torch.zeros((8, 8), dtype=torch.int32)
+    blocks = torch.zeros((1, 8, 8), dtype=torch.int32)
+    lam = torch.tensor([0], dtype=torch.int32)
+    mv, _, _ = me.me_refine(ref, blocks,
+                            torch.zeros((1, 1337, 2), dtype=torch.int32),
+                            lam, n=8, cols=1)
+    # a flat plane ties everywhere: the first position of both scans
+    assert mv.tolist() == [[-3 * 4 - 3, -3 * 4 - 3]]
+    with pytest.raises(ValueError, match="1337"):
+        me.me_refine(ref, blocks,
+                     torch.zeros((1, 1338, 2), dtype=torch.int32),
+                     lam, n=8, cols=1)
+
+
+def _first_min_by_key(costs):
+    """Torch mirror of the kernels' argmin: the smallest 64-bit key
+    (cost << 16) | order over the last dimension, order being the
+    position in scan order; returns the position."""
+    order = torch.arange(costs.shape[-1], dtype=torch.int64)
+    key = (costs.to(torch.int64) << 16) | order
+    return (key.min(dim=-1).values & 0xFFFF).to(torch.int64)
+
+
+def _strict_scan(costs):
+    """Position of the first minimum, by the strict-< scan."""
+    out = []
+    for row in costs.tolist():
+        best, pos = 1 << 62, 0
+        for i, c in enumerate(row):
+            if c < best:
+                best, pos = c, i
+        out.append(pos)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("spread", [3, 1 << 20])
+def test_packed_key_argmin_is_strict_scan(spread):
+    """The packed-key minimum picks the first minimum in scan order, on
+    costs with many exact ties (spread 3) and on wide random costs, over
+    49 sub-pel offsets and over K x 49 (candidate, dy, dx) orders."""
+    rng = np.random.RandomState(spread)
+    for width in (49, 2 * 49, 5 * 49):
+        costs = torch.from_numpy(rng.randint(0, spread, (500, width)))
+        assert torch.equal(_first_min_by_key(costs), _strict_scan(costs))
+
+
+def _int_costs(ref, blocks, cands, lam, n, cols):
+    """me_refine_plain's integer scan costs [L, K * 49], in (candidate,
+    dy, dx) order."""
+    L, K = cands.shape[:2]
+    y0, x0 = me._block_origins(L, n, cols, ref.device)
+    costs = []
+    for k in range(K):
+        mvk = cands[:, k].clamp(-me.MV_CLAMP, me.MV_CLAMP)
+        win = me._window(ref, y0 + mvk[:, 1] - 3, x0 + mvk[:, 0] - 3,
+                         n + 6, n + 6)
+        for o, prior in enumerate(me.prior_int_table()):
+            dy, dx = divmod(o, 7)
+            sad = (win[:, dy:dy + n, dx:dx + n] - blocks).abs().sum(
+                dim=(1, 2), dtype=torch.int32)
+            costs.append(sad + ((lam * prior) >> 8))
+    return torch.stack(costs, 1)
+
+
+def _qpel_costs(ref, blocks, lam, n, cols, mv_int):
+    """me_refine_plain's quarter-pel scan costs [L, 49] around the
+    full-pel MVs mv_int, in (qy, qx) order."""
+    y0, x0 = me._block_origins(blocks.shape[0], n, cols, ref.device)
+    costs = []
+    for o, prior in enumerate(me.prior_qpel_table()):
+        qy, qx = o // 7 - 3, o % 7 - 3
+        mvq = torch.stack([mv_int[:, 0] * 4 + qx, mv_int[:, 1] * 4 + qy], 1)
+        pred = me.mc_luma_plain(ref, mvq, y0, x0, n)
+        costs.append(me.satd_tiles(blocks - pred) + ((lam * prior) >> 8))
+    return torch.stack(costs, 1)
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_tie_inputs_meet_exact_ties(n):
+    """chip_smoke's tie-heavy inputs (flat and striped planes, candidates
+    coinciding in pairs) give blocks whose integer and quarter-pel scans
+    both hold more than one offset at the minimum, and me_refine_plain
+    then takes the first minimum in scan order in both."""
+    from chip_smoke import tie_inputs, tie_planes
+    gen = torch.Generator().manual_seed(n)
+    for name, plane, lam64 in tie_planes(H, W):
+        ref, blocks, cands, _, cols = tie_inputs(plane, n, 5, gen, "cpu")
+        lam = torch.tensor([lam64], dtype=torch.int32)
+        mv, _, _ = me.me_refine_plain(ref, blocks, cands, lam, n, cols)
+        c_int = _int_costs(ref, blocks, cands, lam, n, cols)
+        first = _first_min_by_key(c_int)
+        c, o = first // 49, first % 49
+        cand = cands[torch.arange(len(c)), c].clamp(-me.MV_CLAMP,
+                                                    me.MV_CLAMP)
+        mv_int = cand + torch.stack([o % 7 - 3, o // 7 - 3], 1)
+        c_q = _qpel_costs(ref, blocks, lam, n, cols, mv_int)
+        for costs in (c_int, c_q):
+            ties = (costs == costs.min(dim=1, keepdim=True).values).sum(1)
+            assert int((ties > 1).sum()) >= blocks.shape[0] // 2, name
+        first_q = _first_min_by_key(c_q)
+        want = mv_int * 4 + torch.stack([first_q % 7 - 3,
+                                         first_q // 7 - 3], 1)
+        assert torch.equal(mv.to(torch.int64), want), name

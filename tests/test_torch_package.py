@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it imports neither JAX nor anything of
-kvazaar_tpu (nor does chip_smoke.py), it targets CUDA unless asked for the
-CPU, and configurations outside the ported slice raise."""
+kvazaar_tpu (nor do chip_smoke.py and tools/me_bench.py), it targets CUDA
+unless asked for the CPU, and configurations outside the ported slice
+raise."""
 import ast
 import os
 import subprocess
@@ -16,7 +17,7 @@ PKG = os.path.join(ROOT, "kvazaar_tpu_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", os.path.join("tools", "me_bench.py")])
 FORBIDDEN = ("jax", "jaxlib", "kvazaar_tpu")
 
 
