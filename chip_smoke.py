@@ -9,12 +9,13 @@ Phases (each prints its lines; any failure exits non-zero):
    native entropy library, from the sources in this checkout;
 3. kernel parity: me_refine and me_eval against their plain PyTorch
    versions at the 1080p shapes of the main path, bit-exact (tolerance
-   0), on synthetic frames and on tie-heavy planes; me_refine's time,
-   bound and blocks per SM per block size; then the time of one B
-   frame's launches of each kernel, and of its plain version. Bounds
-   take each kernel's operations at the rate of the pipe that runs them
-   (PIPE_LANES: float32 for me_refine, int32 for me_eval), from the
-   card's SM count and maximum SM clock;
+   0), on synthetic frames and on tie-heavy planes (me_eval with K = 1
+   and 4 pairs, every output flag, one plane for both lists and two);
+   each kernel's time, bound and blocks per SM per block size for one
+   B frame's launches in the main path's pattern, their sum, and the
+   plain versions' time. Bounds take each kernel's operations at the
+   rate of the pipe that runs them (PIPE_LANES: float32 for both), from
+   the card's SM count and maximum SM clock;
 4. main path: 1 IDR + 3 B frames of a 1920x1080 synthetic sequence
    through kvazaar_tpu_torch.api.encode_sequence on cuda, with the kernel
    launch counters read around it; every B frame must code intra leaves
@@ -45,11 +46,14 @@ import numpy as np
 # published H100 SXM HBM bandwidth (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
 # Lanes per SM of a GH100 SM (Hopper architecture white paper) on the pipe
-# that runs each kernel's counted work, a multiply-add counted as 2:
-# me_refine does its filter, rounding, Hadamard and SAD arithmetic in
+# that runs each kernel's counted work, a multiply-add counted as 2: both
+# kernels do their filter, rounding, Hadamard and SAD arithmetic in
 # float32 (128 FP32 lanes, which is also the most an SM issues a clock on
-# any pipe), me_eval in int32 (64 INT32 lanes)
-PIPE_LANES = {"me_refine": ("fp32", 128), "me_eval": ("int32", 64)}
+# any pipe)
+PIPE_LANES = {"me_refine": ("fp32", 128), "me_eval": ("fp32", 128)}
+# candidate pairs a block of me_eval's widest call on the main path (the
+# merge candidates left, top, CTB corner and zero)
+EVAL_K = 4
 # the main path's picture size
 W, H = 1920, 1080
 
@@ -119,10 +123,10 @@ def mixed_frames(n, w, h):
 
 def kernel_inputs(ref, src, n, K, gen):
     """The n x n blocks of src in raster order, K random full-pel
-    candidates per block reaching +-100 px and one random qpel MV per
-    block reaching +-100 px (both far outside the picture, so the index
-    clamping is exercised), on ref's device. Returns (blocks, cands, mvs,
-    cols)."""
+    candidates per block reaching +-100 px and EVAL_K random pairs of
+    qpel MVs per block reaching +-100 px (both far outside the picture,
+    so the index clamping is exercised), on ref's device. Returns
+    (blocks, cands, (mv0, mv1), cols)."""
     import torch
     rows, cols = src.shape[0] // n, src.shape[1] // n
     L = rows * cols
@@ -130,8 +134,9 @@ def kernel_inputs(ref, src, n, K, gen):
         .reshape(L, n, n).contiguous()
     cands = torch.randint(-100, 101, (L, K, 2), generator=gen,
                           dtype=torch.int32).to(ref.device)
-    mvs = torch.randint(-400, 401, (L, 2), generator=gen,
-                        dtype=torch.int32).to(ref.device)
+    mvs = tuple(torch.randint(-400, 401, (L, EVAL_K, 2), generator=gen,
+                              dtype=torch.int32).to(ref.device)
+                for _ in range(2))
     return blocks, cands, mvs, cols
 
 
@@ -151,31 +156,53 @@ def tie_planes(h, w):
 def tie_inputs(plane, n, K, gen, device):
     """kernel_inputs on a tie_planes plane (as reference and source) with
     every block's candidates coinciding in pairs (cands[:, 2j + 1] =
-    cands[:, 2j]), so whole candidates tie too. Returns (ref, blocks,
-    cands, mvs, cols)."""
+    cands[:, 2j]), so whole candidates tie too, and me_eval's list 1 MVs
+    equal to list 0's. Returns (ref, blocks, cands, mvs, cols)."""
     import torch
     ref = torch.from_numpy(plane).to(device)
-    blocks, cands, mvs, cols = kernel_inputs(ref, ref, n, K, gen)
+    blocks, cands, (mv0, _), cols = kernel_inputs(ref, ref, n, K, gen)
     cands[:, 1::2] = cands[:, 0:K - K % 2:2]
-    return ref, blocks, cands, mvs, cols
+    return ref, blocks, cands, (mv0, mv0.clone()), cols
 
 
-def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols):
-    """Largest absolute difference between each kernel's outputs and its
-    plain version's on the same inputs (me_eval with hi off and on)."""
+# me_eval's calls on the main path, per block size of a B frame: (pairs,
+# want_satd, want_pred) of the first evaluation of the per-list winners,
+# the merge candidates, and the final prediction
+EVAL_CALLS = ((1, True, False), (EVAL_K, True, False), (1, False, True))
+
+
+def _max_diff(got, want):
     import torch
+    torch.cuda.synchronize()
+    return max(int((a - b).abs().max()) for a, b in zip(got, want))
 
-    def diff(got, want):
-        torch.cuda.synchronize()
-        return max(int((a - b).abs().max()) for a, b in zip(got, want))
-    err = {"me_refine": diff(
-        me.me_refine(ref, blocks, cands, lam, n=n, cols=cols),
-        me.me_refine_plain(ref, blocks, cands, lam, n, cols))}
-    err["me_eval"] = max(diff(
-        me.me_eval(ref, blocks, mvs, n=n, cols=cols, hi=hi),
-        me.me_eval_plain(ref, blocks, mvs, n, cols, hi))
-        for hi in (False, True))
+
+def eval_errors(me, ref, blocks, mvs, n, cols, ref1):
+    """Largest absolute difference between me_eval's outputs and its plain
+    version's on the same inputs, in each call pattern of EVAL_CALLS and
+    with both outputs, with ref for both lists and with ref1 for list 1
+    (8 launches)."""
+    def flat(out):
+        return [t for part in out if part is not None for t in part]
+    err = 0
+    for r1 in (ref, ref1):
+        for k, want_satd, want_pred in EVAL_CALLS + ((1, True, True),):
+            args = (ref, r1, blocks, mvs[0][:, :k].contiguous(),
+                    mvs[1][:, :k].contiguous())
+            kw = dict(n=n, cols=cols, want_satd=want_satd,
+                      want_pred=want_pred)
+            err = max(err, _max_diff(flat(me.me_eval(*args, **kw)),
+                                     flat(me.me_eval_plain(*args, **kw))))
     return err
+
+
+def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1):
+    """Largest absolute difference between each kernel's outputs and its
+    plain version's on the same inputs (me_eval as in eval_errors)."""
+    return {"me_refine": _max_diff(
+        me.me_refine(ref, blocks, cands, lam, n=n, cols=cols),
+        me.me_refine_plain(ref, blocks, cands, lam, n, cols)),
+        "me_eval": eval_errors(me, ref, blocks, mvs, n, cols, ref1)}
 
 
 def compare_devices(frames, w, h):
@@ -218,10 +245,18 @@ def refine_work(n, L, K, hp, wp):
     return nbytes, L * per_block
 
 
-def eval_work(n, L, hp, wp):
-    nbytes = 4 * (hp * wp + L * n * n + L * 2 + L + L * n * n)
-    per_block = (n + 7) * n * 16 + n * n * (20 + 9)
-    return nbytes, L * per_block
+def eval_work(n, L, K, hp, wp, planes, want_satd, want_pred):
+    """One me_eval call of K pairs a block on `planes` distinct reference
+    planes (1 where list 1 is list 0): per list the horizontal and
+    vertical 8-tap passes and the rounding; with want_satd the
+    bi-average and three SATDs (difference, 2-D butterflies, |t|, sum)."""
+    nbytes = 4 * (planes * hp * wp + L * n * n + 2 * L * K * 2
+                  + (3 * L * K if want_satd else 0)
+                  + (2 * L * n * n if want_pred else 0))
+    per_pair = 2 * ((n + 7) * n * 16 + n * n * 20)
+    if want_satd:
+        per_pair += n * n * 4 + 3 * 9 * n * n
+    return nbytes, L * K * per_pair
 
 
 def bound_ms(works, ops_rate):
@@ -236,104 +271,125 @@ def bound_ms(works, ops_rate):
     return tot * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps runs after one warm-up, CUDA events."""
+def time_calls(fn, reps: int) -> tuple:
+    """(device ms, wall ms) per fn() over reps runs after one warm-up.
+    Wall: host clock around the runs and a synchronize, the longer of
+    the host's issue time and the device's. Device: CUDA events around
+    the same runs queued behind a spin kernel (torch.cuda._sleep) that
+    lasts twice the wall time, so the events enclose the device's work
+    back to back and not the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * wall_s * 2e9) + 1_000_000)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / reps, wall_s * 1e3 / reps
+
 
 
 def phase_kernels(me, torch, rates):
     """Bit-exact parity of both kernels with their plain versions at the
     slice's 1080p shapes, on the synthetic frames and on the tie-heavy
-    planes; me_refine's time, bound and blocks per SM per block size;
-    then both kernels' times for one B frame's launches (me_refine's as
-    the sum of its per-size times). rates: ops_rates."""
+    planes; then per block size each kernel's time, bound and blocks per
+    SM for one B frame's launches in the main path's pattern (me_refine
+    once per list; me_eval as EVAL_CALLS, both lists on one plane), the
+    B frame's time as their sum, and the plain versions' time for the
+    same launches. rates: ops_rates."""
     hp, wp = H + (-H) % 64, W + (-W) % 64
-    frames = synth_frames(2, wp, hp)
-    ref = torch.from_numpy(frames[0][0].astype(np.int32)).cuda()
-    src = torch.from_numpy(frames[1][0].astype(np.int32)).cuda()
+    ref, src, ref1 = (torch.from_numpy(f[0].astype(np.int32)).cuda()
+                      for f in synth_frames(3, wp, hp))
     lam = torch.tensor([153], dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     err = {"me_refine": 0, "me_eval": 0}
-    ref_calls, eval_calls = [], []
+    calls = {"me_refine": {}, "me_eval": {}}
     for n in (8, 16, 32, 64):
         K = 2 if n <= 16 else 5
         blocks, cands, mvs, cols = kernel_inputs(ref, src, n, K, gen)
-        e = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols)
+        e = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1)
         err = {k: max(v, e[k]) for k, v in err.items()}
         print(f"parity n={n} L={blocks.shape[0]} K={K}: max_abs_err "
-              f"me_refine {e['me_refine']}, me_eval (hi off and on) "
+              f"me_refine {e['me_refine']}, me_eval (K = 1 and "
+              f"{EVAL_K}, every output, one and two planes) "
               f"{e['me_eval']}", flush=True)
         for name, plane, lam_t in tie_planes(hp, wp):
             t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(
                 plane, n, K, gen, "cuda")
             e = kernel_errors(me, t_ref, t_blocks, t_cands, t_mvs,
                               torch.tensor([lam_t], dtype=torch.int32,
-                                           device="cuda"), n, cols)
+                                           device="cuda"), n, cols,
+                              t_ref.roll(1, 1).contiguous())
             err = {k: max(v, e[k]) for k, v in err.items()}
             print(f"parity n={n} tie-heavy {name} (lam64 {lam_t}): "
                   f"max_abs_err me_refine {e['me_refine']}, me_eval "
                   f"{e['me_eval']}", flush=True)
-        # one B frame: me_refine per list (2) and size; me_eval 12 per size
-        ref_calls += [(n, cols, blocks, cands)] * 2
-        eval_calls += [(n, cols, blocks, mvs)] * 12
+        # one B frame at this size: me_refine once per list; me_eval in
+        # the main path's pattern, list 1 being list 0
+        calls["me_refine"][n] = [
+            ((ref, blocks, cands, lam), dict(n=n, cols=cols)),
+        ] * 2
+        calls["me_eval"][n] = [
+            ((ref, ref, blocks, mvs[0][:, :k].contiguous(),
+              mvs[1][:, :k].contiguous()),
+             dict(n=n, cols=cols, want_satd=want_satd, want_pred=want_pred))
+            for k, want_satd, want_pred in EVAL_CALLS]
     if any(err.values()):
         fail(f"kernel/plain mismatch {err}")
-    refine_ms = 0.0
-    for n in (8, 16, 32, 64):
-        calls = [c for c in ref_calls if c[0] == n]
 
-        def k():
-            for _, cols, blocks, c in calls:
-                me.me_refine(ref, blocks, c, lam, n=n, cols=cols)
-        ms = cuda_ms(k, 10)
-        refine_ms += ms
-        b_ms, b_by = bound_ms([refine_work(n, b.shape[0], c.shape[1], hp, wp)
-                               for _, _, b, c in calls], rates["me_refine"])
-        occ = me.me_refine_occupancy(n)
-        print(f"me_refine n={n}: {len(calls)} launches {ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}; {occ['blocks_per_sm']} blocks per "
-              f"SM of {occ['threads']} threads ({occ['sources']} source "
-              f"blocks each), {occ['smem']} B shared, {occ['regs']} "
-              f"registers, {occ['local']} B local", flush=True)
-
-    def refine_plain():
-        for n, cols, blocks, c in ref_calls:
-            me.me_refine_plain(ref, blocks, c, lam, n, cols)
-
-    def eval_kernel():
-        for n, cols, blocks, m in eval_calls:
-            me.me_eval(ref, blocks, m, n=n, cols=cols, hi=True)
-
-    def eval_plain():
-        for n, cols, blocks, m in eval_calls:
-            me.me_eval_plain(ref, blocks, m, n, cols, True)
-    timed = {
-        "me_refine": (refine_ms, refine_plain,
-                      [refine_work(n, blocks.shape[0], c.shape[1], hp, wp)
-                       for n, _, blocks, c in ref_calls]),
-        "me_eval": (cuda_ms(eval_kernel, 10), eval_plain,
-                    [eval_work(n, blocks.shape[0], hp, wp)
-                     for n, _, blocks, _ in eval_calls])}
+    def work(name, args, kw):
+        if name == "me_refine":
+            return refine_work(kw["n"], args[1].shape[0], args[2].shape[1],
+                               hp, wp)
+        return eval_work(kw["n"], args[2].shape[0], args[3].shape[1], hp,
+                         wp, 1 if args[0] is args[1] else 2,
+                         kw["want_satd"], kw["want_pred"])
     out = {}
-    for name, (ms, plain, works) in timed.items():
-        plain_ms = cuda_ms(plain, 1)
+    for name, per_size in calls.items():
+        kernel, plain = getattr(me, name), getattr(me, f"{name}_plain")
+        total_ms, works = 0.0, []
+        for n, cs in per_size.items():
+            def run():
+                for args, kw in cs:
+                    kernel(*args, **kw)
+            ms = time_calls(run, 10)[0]
+            total_ms += ms
+            ws = [work(name, args, kw) for args, kw in cs]
+            works += ws
+            b_ms, b_by = bound_ms(ws, rates[name])
+            occ = me.kernel_occupancy(name, n)
+            print(f"{name} n={n}: {len(cs)} launches {ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by}; {occ['blocks_per_sm']} blocks "
+                  f"per SM of {occ['threads']} threads ({occ['sources']} "
+                  f"source blocks each), {occ['smem']} B shared, "
+                  f"{occ['regs']} registers, {occ['local']} B local",
+                  flush=True)
+
+        def run_plain():
+            for cs in per_size.values():
+                for args, kw in cs:
+                    if name == "me_refine":
+                        plain(*args, kw["n"], kw["cols"])
+                    else:
+                        plain(*args, **kw)
+        plain_ms = time_calls(run_plain, 1)[0]
         b_ms, b_by = bound_ms(works, rates[name])
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        out[name] = dict(ms=total_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=err[name],
                          calls=len(works))
         print(f"time {name}: one B frame's {len(works)} launches "
-              f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"by {b_by}, {PIPE_LANES[name][0]} rate)", flush=True)
+              f"{total_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, {PIPE_LANES[name][0]} rate)",
+              flush=True)
     return out
 
 
@@ -371,9 +427,10 @@ def phase_main(torch, me):
     launches = {"me_refine": me.me_refine.launches,
                 "me_eval": me.me_eval.launches}
     n_b = sum(1 for i in infos if i["slice_type"] == 0)
-    # per B frame: me_refine per list and size (2 x 4); me_eval 12 per
-    # size (2 uni, 8 merge candidates, 2 final) x 4 sizes
-    expect = {"me_refine": 8 * n_b, "me_eval": 48 * n_b}
+    # per B frame: me_refine per list and size (2 x 4); me_eval per size
+    # as EVAL_CALLS (the winners' pair, the merge candidates, the final
+    # prediction) x 4 sizes
+    expect = {"me_refine": 8 * n_b, "me_eval": 4 * len(EVAL_CALLS) * n_b}
     print(f"main path: {len(infos)} frames ({n_b} B) in {wall:.3f} s = "
           f"{len(infos) / wall:.4f} fps, {len(stream)} bytes, launches "
           f"{launches} (expected {expect}), native slices "

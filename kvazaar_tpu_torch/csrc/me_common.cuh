@@ -1,43 +1,24 @@
 // Shared device helpers for the motion-estimation kernels: the HEVC
-// 8-tap luma filter, index clamping and the 8x8 Hadamard SATD.
+// 8-tap luma filter (the one table of its taps) and index clamping.
 #pragma once
 #include <cuda_runtime.h>
-
-__constant__ int kLumaFilter[4][8] = {
-    {0, 0, 0, 64, 0, 0, 0, 0},
-    {-1, 4, -10, 58, 17, -5, 1, 0},
-    {-1, 4, -11, 40, 40, -11, 4, -1},
-    {0, 1, -5, 17, 58, -10, 4, -1},
-};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// In-register 8-point Walsh-Hadamard butterflies over a[0..7] with stride.
-__device__ __forceinline__ void wht8(int* a, int stride) {
-#pragma unroll
-    for (int h = 1; h < 8; h <<= 1) {
-#pragma unroll
-        for (int i = 0; i < 8; i += 2 * h) {
-#pragma unroll
-            for (int j = i; j < i + h; ++j) {
-                int x = a[j * stride], y = a[(j + h) * stride];
-                a[j * stride] = x + y;
-                a[(j + h) * stride] = x - y;
-            }
-        }
-    }
+// HEVC luma taps: a constant expression, so that fully unrolled loops
+// with a constant phase fold them (me_refine's vsweep skips the zero
+// taps); with a run-time phase they are a few selects. Phase 3 mirrors
+// phase 1.
+__host__ __device__ constexpr int luma_tap1(int k) {
+    return k == 0 ? -1 : k == 1 ? 4 : k == 2 ? -10 : k == 3 ? 58
+         : k == 4 ? 17 : k == 5 ? -5 : k == 6 ? 1 : 0;
 }
-
-// (sum |H d H| + 2) >> 2 of one 8x8 tile d (row-major, modified in place).
-__device__ __forceinline__ int satd8x8(int* d) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) wht8(d + 8 * r, 1);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) wht8(d + c, 8);
-    int s = 0;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) s += abs(d[i]);
-    return (s + 2) >> 2;
+__host__ __device__ constexpr int luma_tap(int ph, int k) {
+    return ph == 0 ? (k == 3 ? 64 : 0)
+         : ph == 1 ? luma_tap1(k)
+         : ph == 3 ? luma_tap1(7 - k)
+         : (k == 3 || k == 4) ? 40 : (k == 2 || k == 5) ? -11
+         : (k == 1 || k == 6) ? 4 : -1;
 }

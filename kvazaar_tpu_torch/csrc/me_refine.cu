@@ -67,21 +67,6 @@ __device__ __forceinline__ int prior_qpel(int a) {
     return a == 0 ? 0 : (a == 1 ? 1 : 2);
 }
 
-// HEVC luma taps, the kernel's one table of them: a constant expression,
-// so that fully unrolled loops with a constant phase fold them (vsweep
-// skips the zero taps); phase 3 mirrors phase 1
-__host__ __device__ constexpr int luma_tap1(int k) {
-    return k == 0 ? -1 : k == 1 ? 4 : k == 2 ? -10 : k == 3 ? 58
-         : k == 4 ? 17 : k == 5 ? -5 : k == 6 ? 1 : 0;
-}
-__host__ __device__ constexpr int luma_tap(int ph, int k) {
-    return ph == 0 ? (k == 3 ? 64 : 0)
-         : ph == 1 ? luma_tap1(k)
-         : ph == 3 ? luma_tap1(7 - k)
-         : (k == 3 || k == 4) ? 40 : (k == 2 || k == 5) ? -11
-         : (k == 1 || k == 6) ? 4 : -1;
-}
-
 template <int N>
 struct RefineGeom {
     static constexpr int WI = N + 6;     // integer-refine window side

@@ -9,9 +9,10 @@ default configuration (one reference per list, bi-prediction on,
    size (8..64) refines the field candidates to quarter-pel with the
    `me_refine` kernel (ops/me.py);
 2. decision: per size, the per-list winners, their exact bi-average and
-   the merge candidates (SATD of exact MVs through the `me_eval` kernel)
-   compete; the winner gets an exact RD cost against the intra leaf cost,
-   then the bottom-up DP picks the quadtree (8..64);
+   the merge candidates (uni and bi SATDs of exact MV pairs, one
+   `me_eval` launch for all four candidates) compete; the winner gets an
+   exact RD cost against the intra leaf cost, then the bottom-up DP picks
+   the quadtree (8..64);
 3. reconstruction: inter leaves reconstruct in one batch, then the intra
    wavefront (models/intra_md.py) fills the intra leaves;
 4. deblocking with the two-list boundary-strength rule, checksum, SSE.
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.mc import CHROMA_FILTERS
-from ..ops.me import me_eval, me_refine, satd_tiles
+from ..ops.me import me_eval, me_refine
 from .intra_md import F32, I32, MdIntraPipeline, rep2, unsupported
 
 NO_REF_POC = -(1 << 30)
@@ -224,12 +225,18 @@ class MdInterPipeline(MdIntraPipeline):
         return (mv, torch.zeros_like(satd), satd,
                 self._mv_bins(mv - cand0 * 4))
 
-    def _eval_exact(self, refs_y, blocks, mvs, n: int, hi: bool = False):
-        """SATD and prediction of exact qpel MVs per block (reference 0 of
-        the list) through the me_eval kernel. Returns (satd, pred)."""
-        return me_eval(refs_y[0].contiguous(), blocks.contiguous(),
-                       mvs.to(I32).contiguous(), n=n, cols=self.w // n,
-                       hi=hi, maxv=self.maxv)
+    def _eval_pairs(self, l0_y, l1_y, blocks, mv0, mv1, n: int,
+                    want_satd: bool = True, want_pred: bool = False):
+        """Exact evaluation of K candidate pairs per block, mv0/mv1
+        [L, K, 2] qpel on reference 0 of each list, in one me_eval launch:
+        ((satd0, satd1, satd_bi) [L, K] or None, (v0, v1) 14-bit [L, n, n]
+        or None). With more references per list, a per-block reference
+        index would select the plane of each list here."""
+        return me_eval(l0_y[0].contiguous(), l1_y[0].contiguous(),
+                       blocks.contiguous(), mv0.to(I32).contiguous(),
+                       mv1.to(I32).contiguous(), n=n, cols=self.w // n,
+                       maxv=self.maxv, want_satd=want_satd,
+                       want_pred=want_pred)
 
     def _merge_align_b(self, l0_y, l1_y, blocks, rows: int, cols: int,
                        n: int, mv0, r0, mv1, r1, dirn, acost, lam_satd):
@@ -258,15 +265,15 @@ class MdInterPipeline(MdIntraPipeline):
         ri = self._arange(rows)[:, None].expand(rows, cols).reshape(-1)
         ones = torch.ones((nb,), dtype=torch.bool, device=self.device)
         valids = (ci > 0, ri > 0, ones, ones)
+        cands = (candL, candT, candS, cand0)
+        (s0, s1, sbi), _ = self._eval_pairs(
+            l0_y, l1_y, blocks, torch.stack([c[0] for c in cands], dim=1),
+            torch.stack([c[2] for c in cands], dim=1), n)
         best = None
-        for c, (cand, valid) in enumerate(zip((candL, candT, candS,
-                                               cand0), valids)):
-            cmv0, _, cmv1, _, cdir = cand
-            s0, p0 = self._eval_exact(l0_y, blocks, cmv0, n, hi=True)
-            s1, p1 = self._eval_exact(l1_y, blocks, cmv1, n, hi=True)
-            sbi = satd_tiles(blocks - self._bi_avg(p0, p1))
-            s_c = torch.where(cdir == 3, sbi,
-                              torch.where(cdir == 1, s0, s1))
+        for c, (cand, valid) in enumerate(zip(cands, valids)):
+            cdir = cand[4]
+            s_c = torch.where(cdir == 3, sbi[:, c],
+                              torch.where(cdir == 1, s0[:, c], s1[:, c]))
             cost_c = s_c.to(F32) + lam_satd * (
                 self.dpc[self.DPC_MERGE] + self.MERGE_DELTAS[c])
             cost_c = torch.where(valid, cost_c, 1e18)
@@ -368,10 +375,9 @@ class MdInterPipeline(MdIntraPipeline):
         lam_satd = torch.sqrt(lam)
         mv0, r0, satd0, bits0 = self._pick_ref_me(me0)
         mv1, r1, satd1, bits1 = self._pick_ref_me(me1)
-        _, v0 = self._eval_exact(l0_y, blocks, mv0, n, hi=True)
-        _, v1 = self._eval_exact(l1_y, blocks, mv1, n, hi=True)
-        pred_bi = self._bi_avg(v0, v1)
-        satd_bi = satd_tiles(blocks - pred_bi)
+        (_, _, satd_bi), _ = self._eval_pairs(l0_y, l1_y, blocks,
+                                              mv0[:, None], mv1[:, None], n)
+        satd_bi = satd_bi[:, 0]
         idc_u = self.dpc[self.DPC_IDC_UNI]
         idc_b = self.dpc[self.DPC_IDC_BI]
         c0 = satd0.to(F32) + lam_satd * (bits0 + idc_u)
@@ -385,8 +391,9 @@ class MdInterPipeline(MdIntraPipeline):
          merge_delta) = self._merge_align_b(
             l0_y, l1_y, blocks, rows, cols, n, mv0, r0, mv1, r1, dirn,
             acost, lam_satd)
-        _, v0 = self._eval_exact(l0_y, blocks, mv0, n, hi=True)
-        _, v1 = self._eval_exact(l1_y, blocks, mv1, n, hi=True)
+        _, (v0, v1) = self._eval_pairs(l0_y, l1_y, blocks, mv0[:, None],
+                                       mv1[:, None], n, want_satd=False,
+                                       want_pred=True)
         pred_bi = self._bi_avg(v0, v1)
         sel = dirn[:, None, None]
         pred_y = torch.where(sel == 3, pred_bi,
@@ -647,8 +654,11 @@ class MdInterPipeline(MdIntraPipeline):
         src_y = src_y_u8.to(I32)
         src_cb = src_cb_u8.to(I32)
         src_cr = src_cr_u8.to(I32)
+        # list 1 is list 0 on the generalized-B low-delay path: one set of
+        # planes serves both
+        same = l1 is l0
         l0 = tuple(p.to(I32) for p in l0)
-        l1 = tuple(p.to(I32) for p in l1)
+        l1 = l0 if same else tuple(p.to(I32) for p in l1)
         (size_map8, mode_map8, inter8, dir8, mv8, ref8, mv8b, ref8b,
          leaf_preds) = self._partition_inter_b(src_y, src_cb, src_cr, l0, l1)
         init = self._inter_recon_batch(src_y, src_cb, src_cr, size_map8,
@@ -686,7 +696,8 @@ class MdInterPipeline(MdIntraPipeline):
         def pocs(vals):
             return torch.as_tensor(list(vals)[:1], dtype=I32,
                                    device=self.device)
+        s0 = tuple(stack(p) for p in l0)
+        s1 = s0 if l1 is l0 else tuple(stack(p) for p in l1)
         return self._inter_full_b_impl(
             self._to_dev(src_y), self._to_dev(src_cb), self._to_dev(src_cr),
-            tuple(stack(p) for p in l0), tuple(stack(p) for p in l1),
-            pocs(l0_pocs), pocs(l1_pocs))
+            s0, s1, pocs(l0_pocs), pocs(l1_pocs))

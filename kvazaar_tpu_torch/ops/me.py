@@ -1,13 +1,14 @@
 """Motion-estimation kernels: `me_refine` and `me_eval`.
 
 Each function has a plain PyTorch version (`*_plain`, the arithmetic of
-the reference's XLA twins `_me_xla_one` / `_eval_exact`) and a wrapper
-that launches a hand-written CUDA kernel (csrc/me_refine.cu,
+the reference's XLA twins: `_me_xla_one`; `_eval_exact` for each list
+of a candidate pair, then `_bi_avg` and `_satd_tiles` for the pair) and
+a wrapper that launches a hand-written CUDA kernel (csrc/me_refine.cu,
 csrc/me_eval.cu) on CUDA tensors. A CPU tensor takes the plain version;
 a CUDA tensor always takes the kernel.
 
-Both read the UNPADDED [H, W] reference plane and clamp every row and
-column index into it, which equals edge padding for any motion vector.
+Both read the UNPADDED [H, W] reference planes and clamp every row and
+column index into them, which equals edge padding for any motion vector.
 
 The kernels are built on first use with nvcc into the package's _build/
 directory and bound with ctypes (plain C launch functions returning
@@ -173,15 +174,42 @@ def me_refine_plain(ref, src_blocks, cands, lam64, n: int, cols: int,
     return best_q, best_raw, best_p
 
 
-def me_eval_plain(ref, src_blocks, mvs, n: int, cols: int, hi: bool,
-                  maxv: int = 255):
-    """SATD of one exact qpel MV per block plus its prediction (the
-    14-bit intermediate when hi). Returns (satd [L], pred [L, n, n])."""
+def eval_one_plain(ref, src_blocks, mvs, n: int, cols: int, hi: bool,
+                   maxv: int = 255):
+    """SATD of one exact qpel MV per block of one list plus its
+    prediction (the 14-bit intermediate when hi). Returns (satd [L],
+    pred [L, n, n])."""
     L = src_blocks.shape[0]
     y0, x0 = _block_origins(L, n, cols, ref.device)
     pred = mc_luma_plain(ref, mvs, y0, x0, n, hi=hi, maxv=maxv)
     pr = ((pred + 32) >> 6).clamp(0, maxv) if hi else pred
     return satd_tiles(src_blocks - pr), pred
+
+
+def me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, *, n: int, cols: int,
+                  maxv: int = 255, want_satd: bool = True,
+                  want_pred: bool = False):
+    """Exact evaluation of K candidate pairs (list 0 MV, list 1 MV) per
+    block: mv0, mv1 int32 [L, K, 2] qpel (x, y) on ref0, ref1. Returns
+    (satd, pred): satd = (satd0, satd1, satd_bi), each int32 [L, K], with
+    want_satd, else None, satd_l being the SATD of the uni-prediction of
+    list l and satd_bi that of the pair's exact bi-average; pred = (v0,
+    v1), the 14-bit intermediates [L, n, n] of pair 0, with want_pred,
+    else None."""
+    sat, pred = [], None
+    for k in range(mv0.shape[1]):
+        s0, v0 = eval_one_plain(ref0, src_blocks, mv0[:, k], n, cols, True,
+                                maxv)
+        s1, v1 = eval_one_plain(ref1, src_blocks, mv1[:, k], n, cols, True,
+                                maxv)
+        if k == 0 and want_pred:
+            pred = (v0, v1)
+        if want_satd:
+            pb = ((v0 + v1 + 64) >> 7).clamp(0, maxv)
+            sat.append((s0, s1, satd_tiles(src_blocks - pb)))
+    if not want_satd:
+        return None, pred
+    return tuple(torch.stack(c, dim=1) for c in zip(*sat)), pred
 
 
 # ---------------------------------------------------------------------
@@ -199,6 +227,19 @@ def _so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """nvcc command line that builds the kernel source src (which may
+    include csrc/me_common.cuh) into the shared library out, for sm_90a,
+    printing ptxas's registers and spills."""
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        nvcc = "nvcc"
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-I", _CSRC, "-o", out, src]
+
+
 def build_kernels(names=KERNELS, force: bool = False) -> None:
     """Compile the kernel sources with nvcc, one process per source, all
     started together."""
@@ -210,15 +251,9 @@ def build_kernels(names=KERNELS, force: bool = False) -> None:
         if (not force and os.path.exists(so)
                 and os.path.getmtime(so) >= os.path.getmtime(src)):
             continue
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            nvcc = "nvcc"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", so + ".tmp", src]
         procs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            nvcc_command(src, so + ".tmp"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)))
     for name, so, p in procs:
         out, _ = p.communicate()
         if p.returncode != 0:
@@ -234,7 +269,14 @@ def _lib(name: str):
     if lib is not None:
         return lib
     build_kernels((name,))
-    lib = ctypes.CDLL(_so_path(name))
+    _libs[name] = lib = bind(name, _so_path(name))
+    return lib
+
+
+def bind(name: str, path: str):
+    """Load the built library of kernel `name` from path and declare its
+    C functions."""
+    lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, f"kvz_{name}")
     if name == "me_refine":
@@ -242,13 +284,15 @@ def _lib(name: str):
         # stream
         fn.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, ci, ci,
                        vp, vp, vp, vp]
-        lib.kvz_me_refine_info.argtypes = [ci, ctypes.POINTER(ci)]
-        lib.kvz_me_refine_info.restype = ci
     else:
-        # ref, H, W, src, mvs, L, n, cols, maxv, hi, satd, pred, stream
-        fn.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+        # ref0, ref1, H, W, src, mv0, mv1, K, L, n, cols, maxv, satd,
+        # pred, stream
+        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                       vp, vp, vp]
     fn.restype = ci
-    _libs[name] = lib
+    info = getattr(lib, f"kvz_{name}_info")
+    info.argtypes = [ci, ctypes.POINTER(ci)]
+    info.restype = ci
     return lib
 
 
@@ -314,41 +358,62 @@ def me_refine(ref, src_blocks, cands, lam64, *, n: int, cols: int,
     return mv, satd, pred
 
 
-def me_refine_occupancy(n: int) -> dict:
-    """Launch geometry of me_refine's size-n kernel on the current card:
-    blocks per SM that its launch achieves, threads and source blocks per
-    block, dynamic shared bytes per block, registers and local (spill)
-    bytes per thread."""
-    lib = _lib("me_refine")
+def kernel_occupancy(name: str, n: int) -> dict:
+    """Launch geometry of kernel `name`'s size-n kernel on the current
+    card: blocks per SM that its launch achieves, threads and source
+    blocks per block, dynamic shared bytes per block, registers and local
+    (spill) bytes per thread."""
     out = (ctypes.c_int * 6)()
-    err = lib.kvz_me_refine_info(n, out)
+    err = getattr(_lib(name), f"kvz_{name}_info")(n, out)
     if err != 0:
-        raise RuntimeError(f"me_refine_info failed: CUDA error {err}")
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
     return dict(zip(("blocks_per_sm", "threads", "sources", "smem", "regs",
                      "local"), out))
 
 
-def me_eval(ref, src_blocks, mvs, *, n: int, cols: int, hi: bool,
-            maxv: int = 255):
-    """See me_eval_plain. mvs int32 [L, 2] exact qpel MVs (x, y)."""
-    L = _check_common(ref, src_blocks, n, cols)
-    dev = ref.device
-    _check(mvs, "mvs", (L, 2), dev)
+def me_eval(ref0, ref1, src_blocks, mv0, mv1, *, n: int, cols: int,
+            maxv: int = 255, want_satd: bool = True,
+            want_pred: bool = False):
+    """See me_eval_plain. ref0, ref1 int32 [H, W] (may be one tensor);
+    src_blocks int32 [L, n, n] (raster order, `cols` blocks per row);
+    mv0, mv1 int32 [L, K, 2] exact qpel MVs (x, y). want_pred takes
+    K = 1. Held to the kernel's limits on every device."""
+    L = _check_common(ref0, src_blocks, n, cols)
+    dev = ref0.device
+    _check(ref1, "ref1", tuple(ref0.shape), dev)
+    K = mv0.shape[1] if mv0.dim() == 3 else -1
+    _check(mv0, "mv0", (L, K, 2), dev)
+    _check(mv1, "mv1", (L, K, 2), dev)
+    if K < 1 or not (want_satd or want_pred):
+        raise ValueError("me_eval needs K >= 1 pairs and an output")
+    if want_pred and K != 1:
+        raise ValueError(f"me_eval writes predictions for K = 1 only, "
+                         f"got K = {K}")
+    if not 0 <= maxv <= 1023:
+        # the kernel's float32 arithmetic is exact up to 10 bits
+        raise ValueError(f"me_eval takes maxv up to 1023, got {maxv}")
     if dev.type == "cpu":
-        return me_eval_plain(ref, src_blocks, mvs, n, cols, hi, maxv)
+        return me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, n=n,
+                             cols=cols, maxv=maxv, want_satd=want_satd,
+                             want_pred=want_pred)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     fn = _lib("me_eval").kvz_me_eval
-    satd = torch.empty((L,), dtype=torch.int32, device=dev)
-    pred = torch.empty((L, n, n), dtype=torch.int32, device=dev)
-    H, W = ref.shape
-    err = fn(ref.data_ptr(), H, W, src_blocks.data_ptr(), mvs.data_ptr(),
-             L, n, cols, maxv, 1 if hi else 0, satd.data_ptr(),
-             pred.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    satd = (torch.empty((3, L, K), dtype=torch.int32, device=dev)
+            if want_satd else None)
+    pred = (torch.empty((2, L, n, n), dtype=torch.int32, device=dev)
+            if want_pred else None)
+    H, W = ref0.shape
+    err = fn(ref0.data_ptr(), ref1.data_ptr(), H, W, src_blocks.data_ptr(),
+             mv0.data_ptr(), mv1.data_ptr(), K, L, n, cols, maxv,
+             satd.data_ptr() if want_satd else None,
+             pred.data_ptr() if want_pred else None,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"me_eval launch failed: CUDA error {err}")
     me_eval.launches += 1
-    return satd, pred
+    return (tuple(satd) if want_satd else None,
+            tuple(pred) if want_pred else None)
 
 
 me_refine.launches = 0

@@ -30,7 +30,9 @@ def test_kernels_match_plain(n):
     """Both kernels bit-exact with their plain versions, candidates and
     MVs reaching far outside the picture (index clamping), on random
     content and on the tie-heavy planes (flat, stripes; candidates
-    coinciding in pairs), where the strict-< scan order decides."""
+    coinciding in pairs), where the strict-< scan order decides; me_eval
+    with K = 1 and 4 pairs, every output flag, one plane for both lists
+    and two planes."""
     dev = _need_cuda()
     rng = np.random.RandomState(n)
     ref = torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.int32))
@@ -38,31 +40,42 @@ def test_kernels_match_plain(n):
            + torch.from_numpy(rng.randint(-2, 3, (H, W)).astype(np.int32))
            ).clamp(0, 255).to(dev)
     ref = ref.to(dev)
+    ref1 = torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.int32)) \
+        .to(dev)
     gen = torch.Generator(device="cpu").manual_seed(n)
     blocks, cands, mvs, cols = kernel_inputs(ref, src, n, 5, gen)
     lam = torch.tensor([153], dtype=torch.int32, device=dev)
     before = (me.me_refine.launches, me.me_eval.launches)
-    err = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols)
+    err = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1)
+    # me_eval: 4 call patterns x 2 plane choices
     assert (me.me_refine.launches, me.me_eval.launches) == \
-        (before[0] + 1, before[1] + 2)
+        (before[0] + 1, before[1] + 8)
     assert err == {"me_refine": 0, "me_eval": 0}
     for name, plane, lam64 in tie_planes(H, W):
         t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(plane, n, 5, gen,
                                                         dev)
         err = kernel_errors(me, t_ref, t_blocks, t_cands, t_mvs,
                             torch.tensor([lam64], dtype=torch.int32,
-                                         device=dev), n, cols)
+                                         device=dev), n, cols,
+                            t_ref.roll(1, 1).contiguous())
         assert err == {"me_refine": 0, "me_eval": 0}, name
-    assert me.me_refine_occupancy(n)["blocks_per_sm"] >= 1
+    for name in me.KERNELS:
+        assert me.kernel_occupancy(name, n)["blocks_per_sm"] >= 1, name
 
 
 @pytest.mark.cuda
 def test_cuda_stream_equals_cpu_stream():
     """The slice on the GPU gives the CPU path's stream and maps (IDR +
-    2 B with fresh content, so the B frames mix intra and inter leaves)."""
+    2 B with fresh content, so the B frames mix intra and inter leaves),
+    with 8 me_refine and 12 me_eval launches a B frame."""
     _need_cuda()
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches)
     stream, rows = compare_devices(mixed_frames(3, W, H), W, H)
+    # per B frame on the card: me_refine per list and size, me_eval three
+    # launches a size (EVAL_CALLS)
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1]) == (2 * 8, 2 * 12)
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     assert all(r["waves"][0] > 0 for r in rows[1:])
     pics = HEVCDecoder().decode(stream)

@@ -1,8 +1,9 @@
 """The PyTorch port's motion-estimation kernels (kvazaar_tpu_torch/ops/me.py)
 against the JAX reference: the plain versions must be bit-exact with the
-XLA twins the JAX package runs off-TPU (_me_xla_one for me_refine, the
-XLA branch of _eval_exact for me_eval). The CUDA kernels are held against
-the plain versions in tests/test_torch_cuda.py and chip_smoke.py."""
+XLA twins the JAX package runs off-TPU (_me_xla_one for me_refine; the
+XLA branch of _eval_exact for each list of me_eval, _bi_avg and
+_satd_tiles for its pair). The CUDA kernels are held against the plain
+versions in tests/test_torch_cuda.py and chip_smoke.py."""
 import numpy as np
 import pytest
 
@@ -65,10 +66,82 @@ def test_me_plain_matches_jax_twins(n):
         np.testing.assert_array_equal(ts.numpy(), np.asarray(sd))
         np.testing.assert_array_equal(tp.numpy(), np.asarray(pr))
     for hi, (s2, p2) in zip((False, True), evals):
-        es, ep = me.me_eval_plain(t_ref, t_blocks, torch.from_numpy(mvs), n,
-                                  cols, hi)
+        es, ep = me.eval_one_plain(t_ref, t_blocks, torch.from_numpy(mvs), n,
+                                   cols, hi)
         np.testing.assert_array_equal(es.numpy(), np.asarray(s2))
         np.testing.assert_array_equal(ep.numpy(), np.asarray(p2))
+
+
+_PAIR_JAX = {}
+
+
+def _jax_pairs(n, K):
+    """Jitted JAX reference of one me_eval call: per pair, the XLA branch
+    of _eval_exact for each list (14-bit predictions), then _bi_avg and
+    _satd_tiles for the pair. Returns (satd0, satd1, satd_bi) [L, K] and
+    the predictions of pair 0."""
+    if (n, K) not in _PAIR_JAX:
+        pipe = MdInterPipeline(H, W, 27, n_refs=1, deblock=False)
+        rows, cols = H // n, W // n
+        L = rows * cols
+        bid = jnp.arange(L)
+        y0, x0 = (bid // cols) * n, (bid % cols) * n
+        zero = jnp.zeros((L,), jnp.int32)
+
+        def fn(r0, r1, b, m0, m1):
+            sat, preds = [], None
+            for k in range(K):
+                s0, v0 = pipe._eval_exact(None, r0[None], b, y0, x0,
+                                          m0[:, k], zero, n, want_pred=True,
+                                          hi=True)
+                s1, v1 = pipe._eval_exact(None, r1[None], b, y0, x0,
+                                          m1[:, k], zero, n, want_pred=True,
+                                          hi=True)
+                sbi = pipe._satd_tiles(b - pipe._bi_avg(v0, v1, pipe.maxv))
+                sat.append((s0, s1, sbi))
+                preds = preds or (v0, v1)
+            return tuple(jnp.stack(c, axis=1) for c in zip(*sat)), preds
+        _PAIR_JAX[(n, K)] = jax.jit(pipe._with_consts(fn)), pipe.consts
+    return _PAIR_JAX[(n, K)]
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_me_eval_pairs_match_jax(n, K):
+    """me_eval_plain (and the wrapper on the CPU) against the JAX
+    package, tolerance 0: K pairs a block with MVs reaching 20 px outside
+    the picture, on one plane for both lists and on two planes, with
+    satd only, predictions only (K = 1) and both."""
+    rng, ref, src = _inputs(50 + n + K)
+    ref1 = rng.randint(0, 256, (H, W)).astype(np.int32)
+    cols = W // n
+    blocks = _blocks(src, n)
+    L = blocks.shape[0]
+    jf, consts = _jax_pairs(n, K)
+    t_blocks = torch.from_numpy(blocks)
+    for r0, r1 in ((ref, ref), (ref, ref1)):
+        m0 = rng.randint(-80, 81, (L, K, 2)).astype(np.int32)
+        m1 = rng.randint(-80, 81, (L, K, 2)).astype(np.int32)
+        (js, (jv0, jv1)) = jf(consts, jnp.asarray(r0), jnp.asarray(r1),
+                              jnp.asarray(blocks), jnp.asarray(m0),
+                              jnp.asarray(m1))
+        t0 = torch.from_numpy(r0)
+        t1 = t0 if r1 is r0 else torch.from_numpy(r1)
+        flags = [(True, False)] + ([(False, True), (True, True)]
+                                   if K == 1 else [])
+        for want_satd, want_pred in flags:
+            for f in (me.me_eval, me.me_eval_plain):
+                sat, pred = f(t0, t1, t_blocks, torch.from_numpy(m0),
+                              torch.from_numpy(m1), n=n, cols=cols,
+                              want_satd=want_satd, want_pred=want_pred)
+                assert (sat is None) != want_satd
+                assert (pred is None) != want_pred
+                for got, want in zip(sat or (), js):
+                    np.testing.assert_array_equal(got.numpy(),
+                                                  np.asarray(want))
+                for got, want in zip(pred or (), (jv0, jv1)):
+                    np.testing.assert_array_equal(got.numpy(),
+                                                  np.asarray(want))
 
 
 def test_satd_tiles_matches_float_hadamard():
@@ -87,35 +160,54 @@ def test_wrappers_take_plain_version_on_cpu():
     L = blocks.shape[0]
     cands = torch.from_numpy(rng.randint(-9, 10, (L, 2, 2)).astype(np.int32))
     lam = torch.tensor([21], dtype=torch.int32)
-    mvs = torch.from_numpy(rng.randint(-30, 31, (L, 2)).astype(np.int32))
+    mv0, mv1 = (torch.from_numpy(rng.randint(-30, 31, (L, 1, 2))
+                                 .astype(np.int32)) for _ in range(2))
     t_ref, t_blocks = torch.from_numpy(ref), torch.from_numpy(blocks)
     before = (me.me_refine.launches, me.me_eval.launches)
     a = me.me_refine(t_ref, t_blocks, cands, lam, n=n, cols=cols)
     b = me.me_refine_plain(t_ref, t_blocks, cands, lam, n, cols)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    a = me.me_eval(t_ref, t_blocks, mvs, n=n, cols=cols, hi=True)
-    b = me.me_eval_plain(t_ref, t_blocks, mvs, n, cols, True)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    kw = dict(n=n, cols=cols, want_pred=True)
+    a = me.me_eval(t_ref, t_ref, t_blocks, mv0, mv1, **kw)
+    b = me.me_eval_plain(t_ref, t_ref, t_blocks, mv0, mv1, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
     # launch counters count kernel launches only
     assert (me.me_refine.launches, me.me_eval.launches) == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "size"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "size",
+                                 "ref1", "pred_k", "maxv", "no_output"])
 def test_wrappers_reject_bad_inputs(bad):
+    """me_eval refuses what its kernel does not take, on every device:
+    wrong types, shapes or layouts, predictions of more than one pair,
+    samples beyond 10 bits (the kernel's float32 range) and a call that
+    asks for nothing."""
     ref = torch.zeros((H, W), dtype=torch.int32)
+    ref1 = ref
     blocks = torch.zeros((32, 16, 16), dtype=torch.int32)
-    mvs = torch.zeros((32, 2), dtype=torch.int32)
-    kw = dict(n=16, cols=8, hi=False)
+    mv0 = torch.zeros((32, 1, 2), dtype=torch.int32)
+    mv1 = mv0
+    kw = dict(n=16, cols=8)
+    me.me_eval(ref, ref1, blocks, mv0, mv1, maxv=1023, want_pred=True, **kw)
     if bad == "dtype":
         ref = ref.to(torch.int64)
     elif bad == "shape":
-        mvs = torch.zeros((31, 2), dtype=torch.int32)
+        mv1 = torch.zeros((31, 1, 2), dtype=torch.int32)
     elif bad == "contiguous":
         ref = torch.zeros((W, H), dtype=torch.int32).t()
-    else:
+    elif bad == "size":
         kw["n"] = 12
+    elif bad == "ref1":
+        ref1 = torch.zeros((H, W + 8), dtype=torch.int32)
+    elif bad == "pred_k":
+        mv0 = mv1 = torch.zeros((32, 2, 2), dtype=torch.int32)
+        kw["want_pred"] = True
+    elif bad == "maxv":
+        kw["maxv"] = 1024
+    else:
+        kw["want_satd"] = False
     with pytest.raises((TypeError, ValueError)):
-        me.me_eval(ref, blocks, mvs, **kw)
+        me.me_eval(ref, ref1, blocks, mv0, mv1, **kw)
 
 
 def test_me_refine_rejects_more_candidates_than_keys_hold():

@@ -1,5 +1,6 @@
 """Package rules of the PyTorch port: it imports neither JAX nor anything of
-kvazaar_tpu (nor do chip_smoke.py and tools/me_bench.py), it targets CUDA
+kvazaar_tpu (nor do chip_smoke.py and the tools that run on the GPU
+machine: me_bench.py, me_eval_ab.py, torch_profile.py), it targets CUDA
 unless asked for the CPU, and configurations outside the ported slice
 raise."""
 import ast
@@ -17,7 +18,9 @@ PKG = os.path.join(ROOT, "kvazaar_tpu_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    + ["chip_smoke.py", os.path.join("tools", "me_bench.py")])
+    + ["chip_smoke.py"]
+    + [os.path.join("tools", f)
+       for f in ("me_bench.py", "me_eval_ab.py", "torch_profile.py")])
 FORBIDDEN = ("jax", "jaxlib", "kvazaar_tpu")
 
 

@@ -1,12 +1,13 @@
 """Kernel-only check of the motion-estimation kernels on one NVIDIA GPU.
 
-Builds me_refine.cu and me_eval.cu from this checkout, holds both
-kernels bit-exact against their plain versions at the 1080p shapes of
-the main path (synthetic frames and tie-heavy planes), and prints
-me_refine's time, bound and blocks per SM per block size and both
-kernels' times for one B frame's launches: chip_smoke.py's phases 1-3,
-without the main-path encode. Exits non-zero on a mismatch or without a
-card.
+Builds me_refine.cu and me_eval.cu from this checkout (printing each
+source's sha256 and ptxas's registers and spills), holds both kernels
+bit-exact against their plain versions at the 1080p shapes of the main
+path (synthetic frames and tie-heavy planes), and prints each kernel's
+time, bound and blocks per SM per block size for one B frame's launches
+in the main path's pattern (me_refine 2 a size, me_eval 3) and their
+sums: chip_smoke.py's phases 1-3, without the main-path encode. Exits
+non-zero on a mismatch or without a card.
 
 Usage (on a machine with a GPU):  python3 tools/me_bench.py
 """

@@ -4,11 +4,18 @@ Encodes chip_smoke.py's main-path sequence (mixed_frames at 1920x1080:
 IDR + B frames, default configuration) after a warm-up, and reports:
 - per-stage wall times of each frame (host clock around synchronized
   stage calls: partition / ME / leaf search / recon / deblock / entropy);
-- a torch.profiler breakdown of one IDR and one B frame: kernel time by
-  name (top rows), kernel launches, and the kernels' busy share of the
-  frame's unprofiled wall time (the rest is the device idle).
+- the next B frame's inter leaf stage alone (`_inter_leaf_b`, its 4
+  sizes each profiled on its own): kernel-busy ms, kernel launches and
+  host wall ms, its top kernels, and every row of the hand-written
+  kernels (me_eval, me_refine) by block size;
+- unless --leaf is given, a torch.profiler breakdown of one IDR and one
+  B frame of a second encoder: kernel time by name (top rows), kernel
+  launches, and the kernels' busy share of the frame's unprofiled wall
+  time (the rest is the device idle). The profiled IDR frame alone takes
+  a minute or more.
 
-Usage (on a machine with a GPU):  python3 tools/torch_profile.py [frames]
+Usage (on a machine with a GPU):
+    python3 tools/torch_profile.py [frames] [--leaf]
 """
 from __future__ import annotations
 
@@ -20,13 +27,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def main(n_frames: int = 3) -> None:
+def main(n_frames: int = 3, leaf_only: bool = False) -> None:
     import torch
     from chip_smoke import mixed_frames
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     w, h = 1920, 1080
-    frames = mixed_frames(n_frames, w, h)
+    # the last frame is the B frame whose inter leaf stage is profiled
+    frames = mixed_frames(max(n_frames, 1) + 1, w, h)
     encode_sequence(Config(width=w, height=h), frames[:2])   # warm-up
     enc = Encoder(Config(width=w, height=h))
     pipe = enc._pipeline
@@ -51,7 +59,7 @@ def main(n_frames: int = 3) -> None:
         timed(pipe, name)
     timed(enc, "finalize_frame")
     walls = []
-    for i, f in enumerate(frames):
+    for i, f in enumerate(frames[:-1]):
         stages.clear()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -66,19 +74,51 @@ def main(n_frames: int = 3) -> None:
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    enc2 = Encoder(Config(width=w, height=h))
-    for i, f in enumerate(frames[:2]):
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def kernel_events(prof):
+        # kernel events only: an operator's row repeats its kernels' time
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    leaf_fn = pipe._inter_leaf_b
+    wall, by_key = [], {}
+
+    def profiled_leaf(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
+            r = leaf_fn(*a, **kw)
+            torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        for e in kernel_events(prof):
+            us, cnt = by_key.get(e.key, (0.0, 0))
+            by_key[e.key] = (us + e.self_device_time_total,
+                             cnt + e.count)
+        return r
+    pipe._inter_leaf_b = profiled_leaf
+    enc.encode_frame(*frames[-1])
+    busy = sum(us for us, _ in by_key.values()) / 1e3
+    print(f"profile inter leaf B (frame {len(frames) - 1}, {len(wall)} "
+          f"sizes): kernels busy {busy:.3f} ms, "
+          f"{sum(c for _, c in by_key.values())} kernel launches, "
+          f"host wall {sum(wall):.1f} ms profiled", flush=True)
+    for key, (us, cnt) in sorted(by_key.items(),
+                                 key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {us / 1e3:9.3f} ms x{cnt:7d}  {key[:90]}", flush=True)
+    for key, (us, cnt) in sorted(by_key.items()):
+        if "me_eval_kernel" in key or "me_refine_kernel" in key:
+            print(f"  hand kernel {us / 1e3:9.3f} ms x{cnt:5d}  "
+                  f"{key[:60]}", flush=True)
+    enc2 = Encoder(Config(width=w, height=h))
+    for i, f in enumerate([] if leaf_only else frames[:min(2, len(walls))]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=acts) as prof:
             enc2.encode_frame(*f)
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-        # kernel events only: an operator's row repeats its kernels' time
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+        ev = kernel_events(prof)
         dev_us = sum(e.self_device_time_total for e in ev)
         launches = sum(e.count for e in ev)
         kind = "IDR" if i == 0 else "B"
@@ -99,4 +139,5 @@ def main(n_frames: int = 3) -> None:
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:]))
+    main(*(int(a) for a in sys.argv[1:] if a != "--leaf"),
+         leaf_only="--leaf" in sys.argv[1:])
