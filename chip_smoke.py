@@ -23,7 +23,16 @@ Phases (each prints its lines; any failure exits non-zero):
    hash-exactly in the port's decoder;
 5. device parity: IDR + 1 B of the same sequence encoded on cuda and on
    the CPU (plain versions, held against the JAX package by the tests)
-   give the same stream and the same decision maps.
+   give the same stream and the same decision maps;
+6. tool row (SAO, RDOQ, sign hiding; the kernel launch counters are read
+   around each encode): (a) bench.py's scenario 1, 2 all-intra frames at
+   1920x1080 and QP 27 with deblocking, SAO full and RDOQ; (b) IDR + 2 B
+   at 1920x1080 and QP 27 with SAO full, RDOQ and sign hiding, 8
+   me_refine and 12 me_eval launches a B frame; both streams decode
+   hash-exactly to the encoder's reconstruction, per frame the bytes,
+   PSNR, waves and the submit, wavefront and SAO times; (c) config (b)
+   at 416x240 (IDR + 1 B) on cuda and on the CPU: the same stream and
+   maps, SAO parameters included.
 The last lines are a JSON object of per-kernel numbers, the nvidia-smi
 name/power-limit line, and {"ok": true, "device": {...}}.
 
@@ -56,6 +65,12 @@ PIPE_LANES = {"me_refine": ("fp32", 128), "me_eval": ("fp32", 128)}
 EVAL_K = 4
 # the main path's picture size
 W, H = 1920, 1080
+# the tool row of bench.py's scenario 1 (bench.py:40-42, QP 27 at :123),
+# and the same with sign hiding on the generalized-B path
+TOOL_ROW = dict(qp=27, deblock_enable=True, sao_type="full",
+                rdoq_enable=True, signhide_enable=False)
+TOOL_LDB = dict(qp=27, sao_type="full", rdoq_enable=True,
+                signhide_enable=True)
 
 
 def fail(msg: str) -> None:
@@ -205,16 +220,17 @@ def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1):
         "me_eval": eval_errors(me, ref, blocks, mvs, n, cols, ref1)}
 
 
-def compare_devices(frames, w, h):
-    """Encode frames with the default configuration on cuda and on the
-    CPU, where the kernels' plain versions run. Returns the cuda stream
-    and, per frame, whether both chunks are identical, the decision maps
-    that differ, and the waves of the wavefront on each device."""
+def compare_devices(frames, w, h, **cfg):
+    """Encode frames with the configuration cfg (Config options; the
+    defaults when empty) on cuda and on the CPU, where the kernels' plain
+    versions run. Returns the cuda stream and, per frame, whether both
+    chunks are identical, the decision maps that differ, and the waves of
+    the wavefront on each device."""
     from kvazaar_tpu_torch.api import Encoder
     from kvazaar_tpu_torch.cfg import Config
     res = {}
     for dev in ("cuda", "cpu"):
-        enc = Encoder(Config(width=w, height=h), device=dev)
+        enc = Encoder(Config(width=w, height=h, **cfg), device=dev)
         res[dev] = []
         for f in frames:
             chunk, info = enc.encode_frame(*f)
@@ -269,6 +285,24 @@ def bound_ms(works, ops_rate):
         by_bytes += tb
         by_ops += to
     return tot * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def wrap_timed(torch, obj, keys: dict, store: dict) -> None:
+    """Replace methods of obj (attribute name -> key of store) by
+    wrappers that append each call's host-clock ms, synchronized before
+    and after, to the list store[key]."""
+    def wrap(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            store.setdefault(key, []).append((time.perf_counter() - t) * 1e3)
+            return r
+        return wrapper
+    for attr, key in keys.items():
+        if hasattr(obj, attr):
+            setattr(obj, attr, wrap(getattr(obj, attr), key))
 
 
 def time_calls(fn, reps: int) -> tuple:
@@ -393,31 +427,25 @@ def phase_kernels(me, torch, rates):
     return out
 
 
-def phase_main(torch, me):
-    """1 IDR + 3 B frames at 1920x1080 through encode_sequence on cuda."""
+def encode_timed(torch, me, cfg, frames, label):
+    """Encode frames through encode_sequence on cuda with the Config
+    options cfg, the kernel launch counters set to 0 just before and read
+    just after. Prints the run and, per frame, bytes, PSNR, waves and the
+    host-clock times (synchronized) of the frame's submit, its wavefront,
+    its SAO and its host entropy coding. Fails unless every frame was
+    coded by the native slice writers, the B frames launched me_refine 8
+    and me_eval 12 times each, and the stream decodes hash-exactly to the
+    encoder's reconstruction. Returns (launches, infos)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
-    frames = mixed_frames(4, W, H)
-    # warm-up encode (library initialisation, allocator), not counted
-    encode_sequence(Config(width=W, height=H), frames[:2], device="cuda")
-    torch.cuda.synchronize()
-    enc = Encoder(Config(width=W, height=H), device="cuda")
-    pipe = enc._pipeline
-    times = {"idr": [], "b": [], "wavefront": [], "host": []}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t) * 1e3)
-            return r
-        return wrapper
-    pipe.submit = timed(pipe.submit, "idr")
-    pipe.submit_inter_b = timed(pipe.submit_inter_b, "b")
-    pipe._recon_md = timed(pipe._recon_md, "wavefront")
-    enc.finalize_frame = timed(enc.finalize_frame, "host")
+    h, w = frames[0][0].shape
+    enc = Encoder(Config(width=w, height=h, **cfg), device="cuda")
+    times = {"submit": [], "wavefront": [], "sao": [], "host": []}
+    # submit_inter_b exists on the generalized-B path only
+    wrap_timed(torch, enc._pipeline,
+               {"submit": "submit", "submit_inter_b": "submit",
+                "_recon_md": "wavefront", "_sao": "sao"}, times)
+    wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
     me.me_refine.launches = 0
     me.me_eval.launches = 0
     t0 = time.perf_counter()
@@ -431,38 +459,79 @@ def phase_main(torch, me):
     # as EVAL_CALLS (the winners' pair, the merge candidates, the final
     # prediction) x 4 sizes
     expect = {"me_refine": 8 * n_b, "me_eval": 4 * len(EVAL_CALLS) * n_b}
-    print(f"main path: {len(infos)} frames ({n_b} B) in {wall:.3f} s = "
-          f"{len(infos) / wall:.4f} fps, {len(stream)} bytes, launches "
-          f"{launches} (expected {expect}), native slices "
+    print(f"{label}: {len(infos)} frames ({n_b} B) at {w}x{h} in "
+          f"{wall:.3f} s = {len(infos) / wall:.4f} fps, {len(stream)} "
+          f"bytes, launches {launches} (expected {expect}), native slices "
           f"{enc.native_slices}", flush=True)
-    for i in infos:
+    sao = times["sao"] or [None] * len(infos)
+    for k, (i, sub, wav, sao_ms, host) in enumerate(zip(
+            infos, times["submit"], times["wavefront"], sao,
+            times["host"])):
         kind = "IDR" if i["slice_type"] == 2 else "B"
-        print(f"  POC {i['poc']} {kind}: {i['bytes']} bytes, PSNR Y "
+        print(f"  frame {k} {kind} (POC {i['poc']}): {i['bytes']} bytes, "
+              f"PSNR Y "
               f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
-              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}", flush=True)
-    print(f"  submit wall ms per frame (host clock, synchronized): IDR "
-          f"{times['idr']}, B {times['b']}; of which wavefront ms "
-          f"{times['wavefront']}; host entropy coding ms {times['host']}",
-          flush=True)
+              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}; submit wall "
+              f"{sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
+              f"{'off' if sao_ms is None else f'{sao_ms:.2f} ms'}, host "
+              f"entropy coding {host:.1f} ms", flush=True)
     if launches != expect:
-        fail(f"kernel launches {launches} != {expect}")
+        fail(f"{label}: kernel launches {launches} != {expect}")
     if enc.native_slices != len(infos):
-        fail("the native slice writers were not used for every frame")
-    if any(int(i["n_waves"]) == 0 for i in infos if i["slice_type"] == 0):
-        fail("a B frame coded no intra leaf: its wavefront did not run")
+        fail(f"{label}: the native slice writers were not used for every "
+             "frame")
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     t = time.perf_counter()
     pics = HEVCDecoder().decode(stream)
     ok = [p.hash_ok for p in pics]
-    print(f"decode: {len(pics)} frames hash_ok {ok} "
+    print(f"  decode: {len(pics)} frames hash_ok {ok} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     if len(pics) != len(frames) or not all(ok):
-        fail("the 1080p stream does not decode hash-exactly")
+        fail(f"{label}: the stream does not decode hash-exactly")
     for p, i in zip(pics, infos):
         if not all(np.array_equal(a, b) for a, b in
                    zip(p.planes, i["recon_out"])):
-            fail("decoded planes differ from the encoder's reconstruction")
+            fail(f"{label}: decoded planes differ from the encoder's "
+                 "reconstruction")
+    return launches, infos
+
+
+def phase_main(torch, me):
+    """1 IDR + 3 B frames at 1920x1080 through encode_sequence on cuda
+    with the default configuration; every B frame must run the
+    wavefront."""
+    from kvazaar_tpu_torch.api import encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    frames = mixed_frames(4, W, H)
+    # warm-up encode (library initialisation, allocator), not counted
+    encode_sequence(Config(width=W, height=H), frames[:2], device="cuda")
+    torch.cuda.synchronize()
+    launches, infos = encode_timed(torch, me, {}, frames, "main path")
+    if any(int(i["n_waves"]) == 0 for i in infos if i["slice_type"] == 0):
+        fail("a B frame coded no intra leaf: its wavefront did not run")
     return launches
+
+
+def phase_tools(torch, me):
+    """The tool row: (a) bench scenario 1, 2 all-intra frames at 1080p;
+    (b) IDR + 2 B at 1080p with sign hiding too; (c) config (b) at
+    416x240 on cuda and on the CPU."""
+    encode_timed(torch, me, dict(TOOL_ROW, intra_period=1),
+                 mixed_frames(2, W, H), "tool row (a) all-intra")
+    encode_timed(torch, me, TOOL_LDB, mixed_frames(3, W, H),
+                 "tool row (b) IDR + B")
+    t = time.perf_counter()
+    _, rows = compare_devices(mixed_frames(2, 416, 240), 416, 240,
+                              **TOOL_LDB)
+    for i, r in enumerate(rows):
+        print(f"tool row (c) device parity 416x240 frame {i}: stream "
+              f"identical {r['same_stream']}, differing maps "
+              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
+              flush=True)
+    print(f"tool row (c) device parity: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
+        fail("tool row: cuda and CPU encodes differ")
 
 
 def phase_device_parity():
@@ -511,6 +580,7 @@ def open_device(torch):
 
 def main() -> None:
     import torch
+    t_start = time.perf_counter()
     me, kind, name_limit, rates = open_device(torch)
     from kvazaar_tpu_torch import native
 
@@ -535,6 +605,8 @@ def main() -> None:
     kern = phase_kernels(me, torch, rates)
     launches = phase_main(torch, me)
     phase_device_parity()
+    phase_tools(torch, me)
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     src = {"me_refine": ("kvazaar_tpu_torch/csrc/me_refine.cu",
                          "kvazaar_tpu/ops/pallas_me.py:346"),

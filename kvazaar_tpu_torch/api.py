@@ -2,10 +2,11 @@
 
 Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
 at a time, returning Annex-B chunks) for the configuration this port
-covers: CTB 64, 8-bit, constant QP, deblocking, an IDR every
-`intra_period` frames and generalized-B low-delay frames in between
-(both lists = the previous reconstruction, bi-prediction on). Options
-outside that raise NotImplementedError naming their ROADMAP.md entry.
+covers: CTB 64, 8-bit, constant QP, deblocking, SAO, RDOQ and sign-data
+hiding, an IDR every `intra_period` frames and generalized-B low-delay
+frames in between (both lists = the previous reconstruction,
+bi-prediction on). Options outside that raise NotImplementedError naming
+their ROADMAP.md entry.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
 there as the reference pictures; the native C++ slice writers code the
@@ -40,7 +41,7 @@ def build_sps(cfg: Config) -> SPS:
     sps.log2_diff_max_min_tb_size = min(cfg.max_tb_log2, ctb_log2) - 2
     sps.max_transform_hierarchy_depth_intra = cfg.tr_depth_intra
     sps.max_transform_hierarchy_depth_inter = 0
-    sps.sao_enabled = 0
+    sps.sao_enabled = 0 if cfg.sao_type == "off" else 1
     sps.scaling_list_enabled = 0
     sps.amp_enabled = 0
     sps.strong_intra_smoothing = 1 if cfg.strong_intra_smoothing else 0
@@ -61,7 +62,7 @@ def build_sps(cfg: Config) -> SPS:
 def build_pps(cfg: Config) -> PPS:
     pps = PPS()
     pps.init_qp = cfg.qp
-    pps.sign_data_hiding_enabled = 0
+    pps.sign_data_hiding_enabled = 1 if cfg.signhide_enable else 0
     pps.transform_skip_enabled = 0
     pps.transquant_bypass_enabled = 0
     pps.entropy_coding_sync_enabled = 0
@@ -75,7 +76,6 @@ def build_pps(cfg: Config) -> PPS:
 
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    slice2 = "SAO + RDOQ + sign hiding"
     p_prog = "the P program and SMP/AMP"
     gop = "the GOP8 pyramid"
     intra = "the remaining intra variants"
@@ -83,9 +83,6 @@ def check_config(cfg: Config) -> None:
     grid16 = "the 16-grid pipelines"
     for bad, what, entry in (
             (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
-            (cfg.sao_type != "off", "SAO", slice2),
-            (cfg.rdoq_enable, "RDOQ", slice2),
-            (cfg.signhide_enable, "sign-data hiding", slice2),
             (not cfg.bipred, "--no-bipred (the P program)", p_prog),
             (cfg.smp_enable or cfg.amp_enable, "--smp/--amp", p_prog),
             (cfg.gop_len > 1 or cfg.gop_lowdelay, "GOP structures", gop),
@@ -139,7 +136,9 @@ class Encoder:
         self.inter_enabled = cfg.intra_period != 1
         self.n_refs = 1
         kw = dict(deblock=cfg.deblock_enable, deblock_beta=cfg.deblock_beta,
-                  deblock_tc=cfg.deblock_tc, device=self.device)
+                  deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
+                  rdoq=cfg.rdoq_enable, sign_hiding=cfg.signhide_enable,
+                  device=self.device)
         if self.inter_enabled:
             from .models.inter_md import MdInterPipeline
             self._pipeline = MdInterPipeline(self.sps.height,
@@ -217,6 +216,9 @@ class Encoder:
         sh.slice_type = meta["slice_type"]
         sh.qp = meta["qp"]
         sh.first_slice_in_pic = 1
+        if self.sps.sao_enabled:
+            sh.sao_luma = 1
+            sh.sao_chroma = 1
         if not meta["is_idr"]:
             poc = meta["poc"]
             l0, l1 = meta["l0"], meta["l1"]
@@ -245,12 +247,15 @@ class Encoder:
         motion field for TMVP or None)."""
         from . import native
         slice_type = meta["slice_type"]
+        sdh = bool(self.pps.sign_data_hiding_enabled)
+        sao = self.sps.sao_enabled
         if slice_type == 2:
             if native.available():
                 data, _ = native.encode_md_slice(
                     decisions["size_map8"], decisions["mode_map8"],
                     decisions["levels_y"], decisions["levels_cb"],
-                    decisions["levels_cr"], sh.qp, False,
+                    decisions["levels_cr"], sh.qp, False, sdh=sdh,
+                    sao_packed=native.pack_sao(decisions) if sao else None,
                     bit_depth=self.sps.bit_depth_luma,
                     mode4=decisions.get("mode_map4"))
                 self.native_slices += 1
@@ -271,11 +276,19 @@ class Encoder:
             if native.available():
                 data, _, mv4, refpoc4 = native.encode_md_slice_pb(
                     decisions, sh, writer.helper.ref_list, meta["poc"],
-                    False, ref_entries_l1=writer.helper.ref_list1,
+                    False, sdh=sdh, ref_entries_l1=writer.helper.ref_list1,
                     union_pocs=l0,
+                    sao_packed=native.pack_sao(decisions) if sao else None,
+                    sao_cmax=(1 << (min(self.sps.bit_depth_luma, 10)
+                                    - 5)) - 1,
                     max_merge=5 - sh.five_minus_max_num_merge_cand)
                 self.native_slices += 1
                 return [data], (mv4, refpoc4)
+        if sao:
+            from .engine.sao_writer import SaoWriter
+            writer.sao_w = SaoWriter(decisions, bool(sh.sao_luma),
+                                     bool(sh.sao_chroma),
+                                     bit_depth=self.sps.bit_depth_luma)
         bw = BitWriter()
         cab = CabacEncoder(bw, ContextSet(2 - slice_type, sh.qp))
         writer.cab = cab

@@ -325,15 +325,17 @@ class MdInterPipeline(MdIntraPipeline):
         drop = (dist_z + lam * zr <= dist_c + lam * rate)[:, None, None]
         return torch.where(drop, 0, levels), torch.where(drop, 0, r2)
 
-    def _tq_quad(self, resi, qp: int, is_luma: bool):
+    def _tq_quad(self, resi, qp: int, is_luma: bool, tools: bool):
         """T/Q a [B, n, n] residual as four n/2 TUs (the forced transform
         split of 64-luma / 32-chroma blocks), each with the zero-cbf RD
-        competition. Returns (levels, recon residual) [B, n, n]."""
+        competition. tools: as in _transform_quant. Returns (levels,
+        recon residual) [B, n, n]."""
         B, n, _ = resi.shape
         hn = n // 2
         q = resi.reshape(B, 2, hn, 2, hn).transpose(2, 3) \
             .reshape(B * 4, hn, hn)
-        lev, r2 = self._transform_quant(q, hn, qp)
+        lev, r2 = self._transform_quant(q, hn, qp, is_luma=is_luma,
+                                        tools=tools)
         lev, r2 = self._rd_zero_tu(q, lev, r2, hn, is_luma, depth1=True)
         cbf = (lev != 0).any(dim=-1).any(dim=-1)[:, None, None]
         r2 = torch.where(cbf, r2, 0)
@@ -344,19 +346,23 @@ class MdInterPipeline(MdIntraPipeline):
                 .reshape(B, n, n)
         return back(lev), back(r2)
 
-    def _code_residual(self, resi, n: int, qp: int, is_luma: bool):
+    def _code_residual(self, resi, n: int, qp: int, is_luma: bool,
+                       tools: bool):
         """(levels, recon residual, rate) of a leaf's luma or chroma
         residual: four forced-split TUs at 64 luma / 32 chroma, else one
-        TU, each with the zero-cbf competition."""
+        TU, each with the zero-cbf competition. tools: as in
+        _transform_quant (the search quantises plainly, the
+        reconstruction with the configured tools)."""
         rate_fn = self._tu_rate_y if is_luma else self._tu_rate_c
         if n == 32 + 32 * is_luma:
-            levels, r2 = self._tq_quad(resi, qp, is_luma)
+            levels, r2 = self._tq_quad(resi, qp, is_luma, tools)
             L, hn = levels.shape[0], n // 2
             lv4 = levels.reshape(L, 2, hn, 2, hn).transpose(2, 3) \
                 .reshape(L * 4, hn, hn)
             rate = rate_fn(lv4, hn, depth1=True).reshape(L, 4).sum(dim=1)
             return levels, r2, rate
-        levels, r2 = self._transform_quant(resi, n, qp)
+        levels, r2 = self._transform_quant(resi, n, qp, is_luma=is_luma,
+                                           tools=tools)
         levels, r2 = self._rd_zero_tu(resi, levels, r2, n, is_luma)
         return levels, r2, rate_fn(levels, n)
 
@@ -401,7 +407,8 @@ class MdInterPipeline(MdIntraPipeline):
                                          self._uni_round(v1)))
         # exact RD of the chosen candidate (same currency as intra)
         resi = blocks - pred_y
-        levels, r2, rate = self._code_residual(resi, n, self.qp_y, True)
+        levels, r2, rate = self._code_residual(resi, n, self.qp_y, True,
+                                               tools=False)
         dist = self._sqsum(resi - r2)
         cbf_any = (levels != 0).any(dim=-1).any(dim=-1)
         nc = n // 2
@@ -419,7 +426,7 @@ class MdInterPipeline(MdIntraPipeline):
             cpreds.append(cpred)
             cresi = self._blocks(srcp, nc) - cpred
             clev, cr2, crate = self._code_residual(cresi, nc, self.qp_c,
-                                                   False)
+                                                   False, tools=False)
             cdist = self._sqsum(cresi - cr2)
             cbf_any = cbf_any | (clev != 0).any(dim=-1).any(dim=-1)
             ccost = ccost + cdist + lam * crate
@@ -559,7 +566,8 @@ class MdInterPipeline(MdIntraPipeline):
             y0, x0 = (bid // cols) * n, (bid % cols) * n
             pred_y = preds[n][0]
             resi = self._blocks(src_y, n) - pred_y
-            levels, r2, _ = self._code_residual(resi, n, self.qp_y, True)
+            levels, r2, _ = self._code_residual(resi, n, self.qp_y, True,
+                                                tools=True)
             cbf = (levels != 0).any(dim=-1).any(dim=-1)[:, None, None]
             rec = (pred_y + torch.where(cbf, r2, 0)).clamp(0, self.maxv)
             self._put(luma[0], y0, x0, n, rec, mask)
@@ -569,7 +577,7 @@ class MdInterPipeline(MdIntraPipeline):
                 cpred = preds[n][1 + ci]
                 cresi = self._blocks(srcp, nc) - cpred
                 clev, cr2, _ = self._code_residual(cresi, nc, self.qp_c,
-                                                   False)
+                                                   False, tools=True)
                 ccbf = (clev != 0).any(dim=-1).any(dim=-1)[:, None, None]
                 crec = (cpred + torch.where(ccbf, cr2, 0)) \
                     .clamp(0, self.maxv)

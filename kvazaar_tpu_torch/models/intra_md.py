@@ -1,8 +1,9 @@
 """Quadtree (CTB 64) all-intra pipeline in PyTorch: CU/TU leaves 8/16/32.
 
-Device port of kvazaar_tpu/models/intra_md.py for the default
-configuration (8-bit, deblocking on, no SAO/RDOQ/sign hiding, intra PU
-depths 1-3, rd 0). One frame runs three stages on the pipeline's device:
+Device port of kvazaar_tpu/models/intra_md.py for 8-bit, constant-QP
+frames with intra PU depths 1-3 and rd 0, optionally with deblocking, SAO,
+RDOQ and sign-data hiding. One frame runs three stages on the pipeline's
+device:
 
 1. search: every aligned block of every size evaluates all 35 intra modes
    (one constant-matrix float32 product, exact because TF32 is off, plus
@@ -17,9 +18,15 @@ depths 1-3, rd 0). One frame runs three stages on the pipeline's device:
    over every class row, so the only host sync is the periodic
    all-written exit test.
 
-Then deblocking, the decoded-picture checksum and the SSE. Results are
-bit-exact to the reference's decisions (float32 costs aside, which the
+Then deblocking, SAO, the decoded-picture checksum and the SSE. Results
+are bit-exact to the reference's decisions (float32 costs aside, which the
 tests hold to a tolerance) and to the spec for recon and levels.
+
+The search quantises with the plain deadzone rule; the reconstruction
+applies the configured tools (RDOQ, then the sign-hiding parity fix).
+RDOQ's float32 costs are formed as the reference's compiled CPU program
+forms them: its summation orders (_xla_sum, _xla_cumsum) and its fused
+multiply-adds (_fma), so the levels match on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from ..ops.intra_matrices import (build_filter_matrix, build_pred_matrices,
                                   ref_vec_len)
 from ..ops.me import satd_tiles
 from ..tables import (DCT_MATRICES, INV_QUANT_SCALES, QUANT_SCALES,
-                      chroma_qp, scanpos_map)
+                      SCAN_DIAG, SCAN_HOR, SCAN_VER, SIG_CTX_MAP_4X4,
+                      chroma_qp, get_scan, scan_order, scanpos_map)
 
 I32 = torch.int32
 F32 = torch.float32
@@ -82,6 +90,76 @@ def rep2(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.repeat_interleave(k, 0).repeat_interleave(k, 1)
 
 
+def _seq_sum(x) -> torch.Tensor:
+    """Sum over the last dim, one term at a time in order (the reference's
+    float32 order for up to 32 terms)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _xla_sum(x) -> torch.Tensor:
+    """Sum over the last dim (a multiple of 32 when longer than 32) in the
+    order of the reference's compiled CPU reduction: runs of 32 in order,
+    then their sums the same way."""
+    n = x.shape[-1]
+    if n <= 32:
+        return _seq_sum(x)
+    return _xla_sum(_seq_sum(x.reshape(*x.shape[:-1], n // 32, 32)))
+
+
+def _seq_cumsum(x) -> torch.Tensor:
+    """Inclusive prefix sum over the last dim, one term at a time."""
+    acc = x[..., 0]
+    outs = [acc]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+        outs.append(acc)
+    return torch.stack(outs, dim=-1)
+
+
+def _xla_cumsum(x) -> torch.Tensor:
+    """Inclusive prefix sum over the last dim (a multiple of 16 when longer
+    than 16) in the order of the reference's compiled CPU cumsum: in order
+    within runs of 16, plus the exclusive prefix of the run totals (the
+    same way, recursively)."""
+    n = x.shape[-1]
+    if n <= 16:
+        return _seq_cumsum(x)
+    loc = _seq_cumsum(x.reshape(*x.shape[:-1], n // 16, 16))
+    carry = _xla_cumsum(loc[..., -1])
+    carry = F.pad(carry[..., :-1], (1, 0))
+    return (loc + carry[..., None]).reshape(x.shape)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a + b * c in float32 with one rounding, as the reference's compiled
+    program contracts a product and a sum into a fused multiply-add
+    (float64 holds the product of two float32 values exactly)."""
+    f64 = torch.float64
+    a = a.to(f64) if isinstance(a, torch.Tensor) else a
+    b = b.to(f64) if isinstance(b, torch.Tensor) else b
+    c = c.to(f64) if isinstance(c, torch.Tensor) else c
+    return (a + b * c).to(F32)
+
+
+def rdoq_lambda(qp: int) -> float:
+    """RDOQ's float32 lambda 1.5 * 0.57 * 2^((qp - 12) / 3) as the
+    reference's compiled program computes it: the division by 3 becomes a
+    product with float32(1/3), the power is taken in float64 and rounded,
+    and the two constant factors fold into float32(0.855)."""
+    e = np.float32(np.float32(qp) - np.float32(12.0)) * np.float32(1 / 3)
+    return float(np.float32(1.5) * np.float32(0.57)
+                 * np.float32(2.0 ** float(e)))
+
+
+# exponents k at which the reference's floor(log2(2^k)) is k - 1 (its
+# compiled log2 is log(x) * float32(1 / ln 2), which lands below k there);
+# the Golomb price of RDOQ keeps the reference's value
+_LOG2_LOW = (13, 15)
+
+
 def unsupported(what: str, entry: str):
     return NotImplementedError(
         f"{what} is not ported to kvazaar_tpu_torch yet "
@@ -119,11 +197,6 @@ class MdIntraPipeline:
                  trskip: bool = False, device="cuda") -> None:
         assert height % self.CTB == 0 and width % self.CTB == 0
         for bad, what, entry in (
-                (sao not in ("off", "", None), "SAO", "SAO + RDOQ + sign "
-                 "hiding"),
-                (rdoq, "RDOQ", "SAO + RDOQ + sign hiding"),
-                (sign_hiding, "sign-data hiding",
-                 "SAO + RDOQ + sign hiding"),
                 (delta_qp, "delta QP", "the remaining intra variants"),
                 (wpp, "WPP", "the remaining intra variants"),
                 (scaling is not None, "scaling lists",
@@ -146,6 +219,11 @@ class MdIntraPipeline:
         self.deblock = deblock
         self.deblock_beta = deblock_beta
         self.deblock_tc = deblock_tc
+        if sao not in ("off", "full", "band", "edge"):
+            raise ValueError(f"sao must be off, full, band or edge: {sao!r}")
+        self.sao = None if sao == "off" else sao
+        self.rdoq = rdoq
+        self.sign_hiding = sign_hiding
         self.r8, self.c8 = height // 8, width // 8
         self._mode_needs_cache: dict = {}
         self._const_cache: dict = {}
@@ -210,7 +288,32 @@ class MdIntraPipeline:
         }
         for n in (4, 8, 16, 32):
             d[f"spos{n}"] = np.asarray(scanpos_map(n), np.int32)
+        # in-CG coefficient orders of the diagonal, horizontal and
+        # vertical scans: sign hiding follows the mode-dependent scan of
+        # 8x8 luma / 4x4 chroma intra TUs (spec 7.4.9.11)
+        ords = np.zeros((3, 16), np.int32)
+        invs = np.zeros((3, 16), np.int32)
+        for si in (SCAN_DIAG, SCAN_HOR, SCAN_VER):
+            o = np.asarray([y * 4 + x for x, y in scan_order(si, 2)],
+                           np.int32)
+            ords[si] = o
+            invs[si][o] = np.arange(16)
+        d["sdh_ord"], d["sdh_inv"] = ords, invs
+        d.update(self._rdoq_consts(qp))
         return d
+
+    def _rdoq_consts(self, qp: int) -> dict:
+        """Context-init fractional-bit prices of the batched RDOQ, at the
+        pipeline's slice type."""
+        from ..engine.bit_cost import rdoq_prices
+        p = rdoq_prices(qp, self.INIT_TYPE)
+        out = {"sigp": p["sig"], "csbfp": p["csbf"], "g1p": p["g1"],
+               "g2p": p["g2"]}
+        for log2s in (2, 3, 4, 5):
+            out[f"lastp{log2s}"] = p["last"][(log2s, False)]
+            if log2s <= 4:
+                out[f"lastc{log2s}"] = p["last"][(log2s, True)]
+        return out
 
     def _consts_for(self, qp: int | None) -> dict:
         qp = self.qp if qp is None else qp
@@ -412,11 +515,15 @@ class MdIntraPipeline:
         return torch.where(cbf, self.dpc[i1] + self._rate_tu(levels, n),
                            self.dpc[i0])
 
-    def _transform_quant(self, resi, n: int, qp: int):
+    def _transform_quant(self, resi, n: int, qp: int, *, is_luma: bool,
+                         tools: bool, scan_sel=None):
         """Forward transform + quant + dequant + inverse, exact integer
         arithmetic (the products run in float64, exact far beyond these
         magnitudes; CUDA has no int32 matmul). resi [L, n, n] ->
-        (levels, recon_resi) int32."""
+        (levels, recon_resi) int32. tools: quantise with the configured
+        RDOQ / sign hiding (the reconstruction) instead of the plain
+        deadzone rule (the search); scan_sel [L]: per-TU scan index that
+        sign hiding follows (mode-dependent scans), None for diagonal."""
         log2n = int(np.log2(n))
         t = self._tf64[n]
         shift1 = log2n - 1
@@ -428,9 +535,15 @@ class MdIntraPipeline:
         tshift = 7 - log2n
         qbits = 14 + qp // 6 + tshift
         scale = int(QUANT_SCALES[qp % 6])
-        offset = 171 << (qbits - 9)
-        absq = (co.abs() * scale + offset) >> qbits
-        levels = (torch.sign(co) * absq).to(I32)
+        if tools and self.rdoq:
+            levels = self._rdoq_levels(co, scale, qbits, qp, log2n, is_luma)
+        else:
+            offset = 171 << (qbits - 9)
+            absq = (co.abs() * scale + offset) >> qbits
+            levels = (torch.sign(co) * absq).to(I32)
+        if tools and self.sign_hiding:
+            err = co.abs() * scale - (levels.abs() << qbits)
+            levels = self._sdh_fix(levels, n, err, qbits, scan_sel)
         dscale = int(INV_QUANT_SCALES[qp % 6]) << (qp // 6)
         dshift = log2n - 1
         deq = ((levels * dscale + (1 << (dshift - 1))) >> dshift) \
@@ -440,6 +553,226 @@ class MdIntraPipeline:
         r2 = (tmp2.to(F64) @ t).to(I32)
         r2 = ((r2 + (1 << 11)) >> 12).clamp(-32768, 32767)
         return levels, r2
+
+    # ------------------------------------------------------------------
+    # quantisation tools: RDOQ and the sign-hiding parity fix
+    # ------------------------------------------------------------------
+
+    _SCAN_CACHE: dict = {}
+
+    def _scan_perm(self, log2n: int):
+        """(perm, inv_perm) of the diagonal scan as index tensors: perm[p]
+        = flat (y*n+x) index of scan position p."""
+        key = (log2n, self.device)
+        if key not in self._SCAN_CACHE:
+            n = 1 << log2n
+            scan = get_scan(SCAN_DIAG, log2n)
+            perm = (scan[:, 1] * n + scan[:, 0]).astype(np.int64)
+            invp = np.empty(n * n, np.int64)
+            invp[perm] = np.arange(n * n)
+            self._SCAN_CACHE[key] = (torch.from_numpy(perm).to(self.device),
+                                     torch.from_numpy(invp).to(self.device))
+        return self._SCAN_CACHE[key]
+
+    def _golomb_log2(self, rem):
+        """floor(log2(rem)) of integer-valued float32 rem >= 1, with the
+        reference's value at the powers of two of _LOG2_LOW."""
+        exp = torch.frexp(rem)[1] - 1
+        low = torch.zeros_like(rem, dtype=torch.bool)
+        for k in _LOG2_LOW:
+            low = low | (rem == float(1 << k))
+        return (exp - low.to(exp.dtype)).to(F32)
+
+    def _rdoq_levels(self, co, scale: int, qbits: int, qp: int, log2n: int,
+                     is_luma: bool = True):
+        """Batched RDOQ (kvazaar_tpu MdIntraPipeline._rdoq_levels):
+
+        1. per coefficient, the level among {0, l-1, l} priced with
+           sig_coeff_flag / greater1 / greater2 / Golomb fractional bits at
+           context init, significance contexts from a provisional
+           coded-sub-block map;
+        2. the last-significant-position walk over the diagonal scan:
+           every candidate last position priced with its last_sig_x/y bits,
+           in-span costs before it and pure distortion after it, and the
+           all-zero option;
+        3. the coded-sub-block zeroing pass.
+        co [L, n, n] int32 -> levels [L, n, n] int32."""
+        n = 1 << log2n
+        L = co.shape[0]
+        c = self.c
+        absco = co.abs()
+        lf = (absco * scale + (1 << (qbits - 1))) >> qbits
+        lamb = rdoq_lambda(qp)
+        # pixel-SSE currency: scaled-domain err^2 / (scale^2 * 4^shift)
+        sf = np.float32(scale)
+        inv = float(np.float32(1.0) / (sf * sf * np.float32(
+            4.0 ** (15 - self.bd - log2n))))
+
+        def ee(lv):
+            """Squared scaled-domain error of level(s) lv, float32."""
+            e = (absco * scale - (lv << qbits)).to(F32)
+            return e * e
+
+        xx = self._arange(n)[None, :]
+        yy = self._arange(n)[:, None]
+        # --- significance-flag prices per position -------------------
+        if log2n == 2:
+            sigc = torch.as_tensor(SIG_CTX_MAP_4X4, device=self.device) \
+                .reshape(4, 4).long()
+            if not is_luma:
+                sigc = sigc + 27
+        else:
+            g = n // 4
+            cgf = (lf != 0).reshape(L, g, 4, g, 4).any(dim=4).any(dim=2)
+            right = F.pad(cgf[:, :, 1:], (0, 1))
+            below = F.pad(cgf[:, 1:, :], (0, 0, 0, 1))
+            prev = (right.long() + 2 * below.long()) \
+                .repeat_interleave(4, 1).repeat_interleave(4, 2)  # [L,n,n]
+            xp, yp = xx & 3, yy & 3
+            s0 = torch.where(xp + yp == 0, 2, torch.where(xp + yp < 3, 1, 0))
+            s1 = torch.where(yp == 0, 2, torch.where(yp == 1, 1, 0))
+            s2 = torch.where(xp == 0, 2, torch.where(xp == 1, 1, 0))
+            sigc = torch.where(prev == 0, s0, torch.where(
+                prev == 1, s1, torch.where(prev == 2, s2, 2)))
+            if is_luma:
+                sigc = sigc + torch.where((xx >> 2) + (yy >> 2) > 0, 3, 0)
+                sigc = sigc + (9 if log2n == 3 else 21)
+            else:
+                sigc = sigc + (9 if log2n == 3 else 12)
+            sigc = torch.where((xx == 0) & (yy == 0), 0, sigc)
+            if not is_luma:
+                sigc = sigc + 27
+        s0b = c["sigp"][sigc, 0]
+        s1b = c["sigp"][sigc, 1]
+        # --- level prices (greater1/greater2 at in-CG start ctx) -----
+        if is_luma:
+            rowmap = torch.where((xx < 4) & (yy < 4), 0, 1)
+        else:
+            rowmap = torch.full((n, n), 2, device=self.device)
+        g1b = c["g1p"][rowmap]                             # [n, n, 2]
+        g2b = c["g2p"][rowmap]
+
+        def lvl_bits(lv):
+            rem = (lv.to(F32) - 3.0).clamp(min=0.0)
+            gol = torch.where(rem < 3.0, rem + 1.0, 4.0 + 2.0
+                              * self._golomb_log2(rem.clamp(min=1.0)))
+            b3 = g1b[..., 1] + g2b[..., 1] + 1.0 + gol
+            return torch.where(lv == 0, 0.0, torch.where(
+                lv == 1, g1b[..., 0] + 1.0,
+                torch.where(lv == 2, g1b[..., 1] + g2b[..., 0] + 1.0, b3)))
+
+        big = 1e30
+        l1 = (lf - 1).clamp(min=0)
+        ee0 = ee(lf * 0)
+        d0 = ee0 * inv
+        # which product the compiled reference contracts into a sum
+        # depends on the operands' other uses: for the zero level it is
+        # the rate's (the distortion's at 4x4, whose significance contexts
+        # are constant), for the nonzero levels the distortion's
+        c0 = _fma(lamb * s0b, ee0, inv) if log2n == 2 \
+            else _fma(d0, lamb, s0b)
+        lv = torch.stack([l1, lf])                         # both candidates
+        c1v, c2v = torch.where(lv > 0, _fma(lamb * (s1b + lvl_bits(lv)),
+                                            ee(lv), inv), big)
+        A = torch.minimum(c0, torch.minimum(c1v, c2v))     # best in-span
+        lin = torch.where((c1v <= c2v) & (c1v <= c0), l1,
+                          torch.where(c2v <= c0, lf, 0))
+        ANZ = torch.minimum(c1v, c2v)                      # best nonzero
+        lnz = torch.where(c1v <= c2v, l1, lf)
+        B = d0                                             # beyond last
+        # --- last-position walk over the diagonal scan ----------------
+        perm, invp = self._scan_perm(log2n)
+
+        def gs(x):
+            return x.expand(L, n, n).reshape(L, n * n)[:, perm]
+
+        As, ANZs, Bs = gs(A), gs(ANZ), gs(B)
+        lins, lnzs = gs(lin), gs(lnz)
+        scans = _xla_cumsum(torch.stack([As, Bs.flip(-1)]))
+        prefA = scans[0] - As                              # exclusive
+        sufB = scans[1].flip(-1) - Bs
+        lastv = c[f"last{'p' if is_luma else 'c'}{log2n}"]
+        # the compiled reference contracts lam * last into the sum except
+        # at 32x32, where the product is formed on its own
+        tot = (prefA + ANZs + lamb * lastv[None, :] if log2n == 5
+               else _fma(prefA + ANZs, lamb, lastv[None, :])) + sufB
+        tot = torch.where(gs(lf > 0), tot, big)
+        p_star = torch.argmin(tot, dim=1)                  # first minimum
+        tot_min = torch.gather(tot, 1, p_star[:, None])[:, 0]
+        all_zero = _xla_sum(Bs) <= tot_min
+        j = torch.arange(n * n, device=self.device)[None, :]
+        ps = p_star[:, None]
+        lev_s = torch.where(j < ps, lins, torch.where(j == ps, lnzs, 0))
+        lev_s = torch.where(all_zero[:, None], 0, lev_s)
+        # --- coded-sub-block zeroing pass ------------------------------
+        ncg = (n * n) >> 4
+        if ncg > 1:
+            cost_keep = torch.where(j < ps, As,
+                                    torch.where(j == ps, ANZs, Bs))
+            keep_cg, zero_cg = _seq_sum(torch.stack(
+                [cost_keep, Bs]).reshape(2, L, ncg, 16))
+            ci = 1 + (0 if is_luma else 2)     # neighbour-coded csbf ctx
+            csbf0 = lamb * c["csbfp"][ci, 0]
+            csbf1 = lamb * c["csbfp"][ci, 1]
+            gidx = torch.arange(ncg, device=self.device)[None, :]
+            zmask = (zero_cg + csbf0 < keep_cg + csbf1) \
+                & (gidx != 0) & (gidx != (p_star >> 4)[:, None])
+            lev_s = torch.where(zmask.repeat_interleave(16, dim=1), 0,
+                                lev_s)
+        lev = lev_s[:, invp].reshape(L, n, n)
+        return (torch.sign(co) * lev).to(I32)
+
+    def _sdh_fix(self, levels, n: int, err, qbits: int, scan_sel=None):
+        """Sign-data-hiding parity fix (spec 7.4.9.11): in each 4x4
+        coefficient group whose nonzero span covers >= 4 scan positions the
+        writer omits the first coefficient's sign and the decoder infers it
+        from the parity of the level sum. Where the parity disagrees, apply
+        the distortion-cheapest |level| +-1 among the nonzero coefficients:
+        +1 where the quantiser rounded down hardest (max err), -1 where it
+        rounded up hardest (min err; only on |level| >= 2, so scan positions
+        and the hidden sign never move). scan_sel [L]: per-TU in-CG scan
+        (0 diagonal, 1 horizontal, 2 vertical), None for diagonal."""
+        L = levels.shape[0]
+        g = n // 4
+        big = 1 << 30
+        sel = (torch.zeros(L, dtype=torch.long, device=self.device)
+               if scan_sel is None else scan_sel.long())
+        ordm = self.c["sdh_ord"][sel].long()[:, None, :].expand(L, g * g, 16)
+        invm = self.c["sdh_inv"][sel].long()[:, None, :].expand(L, g * g, 16)
+
+        def reorder(x):
+            x = x.reshape(L, g, 4, g, 4).transpose(2, 3).reshape(L, g * g, 16)
+            return torch.gather(x, 2, ordm)
+
+        s = reorder(levels)
+        e = reorder(err)
+        nz = s != 0
+        any_nz = nz.any(dim=-1)
+        first = torch.argmax(nz.to(torch.uint8), dim=-1)
+        last = 15 - torch.argmax(nz.flip(-1).to(torch.uint8), dim=-1)
+        total = s.abs().sum(dim=-1)
+        sfirst = torch.gather(s, 2, first[..., None])[..., 0]
+        need = any_nz & ((last - first) >= 4) \
+            & (((total & 1) == 1) != (sfirst < 0))
+        # +1 candidate: nonzero coeff with max rounding deficit
+        e_up = torch.where(nz, e, -big)
+        pos_up = torch.argmax(e_up, dim=-1)
+        cost_up = (1 << qbits) - 2 * torch.gather(e_up, 2,
+                                                  pos_up[..., None])[..., 0]
+        # -1 candidate: |level| >= 2 coeff with max rounding excess
+        ok_dn = s.abs() >= 2
+        e_dn = torch.where(ok_dn, e, big)
+        pos_dn = torch.argmin(e_dn, dim=-1)
+        cost_dn = (1 << qbits) + 2 * torch.gather(e_dn, 2,
+                                                  pos_dn[..., None])[..., 0]
+        use_dn = ok_dn.any(dim=-1) & (cost_dn < cost_up)
+        pos = torch.where(use_dn, pos_dn, pos_up)
+        step = torch.where(use_dn, -1, 1)
+        selv = torch.gather(s, 2, pos[..., None])[..., 0]
+        bump = torch.where(need, torch.sign(selv) * step, 0)
+        s = s + F.one_hot(pos, 16).to(s.dtype) * bump[..., None]
+        out = torch.gather(s, 2, invm).reshape(L, g, g, 4, 4)
+        return out.transpose(2, 3).reshape(L, n, n).to(I32)
 
     @staticmethod
     def _sqsum(x) -> torch.Tensor:
@@ -467,7 +800,8 @@ class MdIntraPipeline:
         pred = torch.gather(preds, 1, modes.long()[:, None, None]
                             .expand(-1, 1, n * n))[:, 0].reshape(-1, n, n)
         resi = blocks - pred
-        levels, r2 = self._transform_quant(resi, n, self.qp_y)
+        levels, r2 = self._transform_quant(resi, n, self.qp_y, is_luma=True,
+                                           tools=False)
         dist = self._sqsum(resi - r2)
         rate = self._tu_rate_y(levels, n)
         nc = n // 2
@@ -477,7 +811,8 @@ class MdIntraPipeline:
             cpred = self._pred_one(crefs, modes, gc, gc, nc, False)
             cblocks = self._blocks(plane, nc)
             cresi = cblocks - cpred.reshape(-1, nc, nc)
-            clev, cr2 = self._transform_quant(cresi, nc, self.qp_c)
+            clev, cr2 = self._transform_quant(cresi, nc, self.qp_c,
+                                              is_luma=False, tools=False)
             cdist = self._sqsum(cresi - cr2)
             crate = self._tu_rate_c(clev, nc)
             ccost = ccost + cdist * (1 + self.REF_NOISE_K / nc) \
@@ -664,7 +999,14 @@ class MdIntraPipeline:
         pred = self._pred_one(refs, modes, g, f, n, is_luma) \
             .reshape(-1, n, n)
         resi = srcb - pred
-        levels, r2 = self._transform_quant(resi, n, qp)
+        scan_sel = None
+        if n == (8 if is_luma else 4):
+            # mode-dependent coefficient scan (spec 7.4.9.11)
+            scan_sel = torch.where((modes >= 6) & (modes <= 14), SCAN_VER,
+                                   torch.where((modes >= 22) & (modes <= 30),
+                                               SCAN_HOR, SCAN_DIAG))
+        levels, r2 = self._transform_quant(resi, n, qp, is_luma=is_luma,
+                                           tools=True, scan_sel=scan_sel)
         cbf = (levels != 0).any(dim=-1).any(dim=-1)[:, None, None]
         rec = (pred + torch.where(cbf, r2, 0)).clamp(0, self.maxv)
         return rec, torch.where(cbf, levels, 0)
@@ -802,10 +1144,32 @@ class MdIntraPipeline:
                                    self.qp_c, self.qp_c, self.deblock_beta,
                                    self.deblock_tc, bit_depth=self.bd)
 
+    def _sao(self, src_y, src_cb, src_cr, ry, rcb, rcr):
+        """SAO search and filter of the deblocked planes (luma per CTB,
+        chroma jointly over Cb/Cr at half the CTB). Returns the filtered
+        planes and the per-CTB parameter maps as int8, under the
+        reference's names (sao_y_*, sao_c_*)."""
+        from ..ops.sao_torch import sao_chroma, sao_luma
+        ab = self.sao in ("full", "band")
+        ae = self.sao in ("full", "edge")
+        ry, py = sao_luma(src_y, ry, self.CTB, self.lam, ab, ae,
+                          bit_depth=self.bd)
+        rcb, rcr, pc = sao_chroma(src_cb, src_cr, rcb, rcr, self.CTB // 2,
+                                  self.lam, ab, ae, bit_depth=self.bd)
+        maps = {"sao_y_" + k: v.to(torch.int8) for k, v in py.items()}
+        maps.update({"sao_c_" + k: v.to(torch.int8) for k, v in pc.items()})
+        return ry, rcb, rcr, maps
+
     def _frame_outputs(self, ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr, src_y,
                        src_cb, src_cr) -> dict:
-        """Final planes, levels, the decoded-picture checksum (summed in
-        int64, reduced mod 2^32) and the SSE (int64)."""
+        """SAO of the deblocked planes (when on), then the final planes
+        (the frame's reference picture), levels, the decoded-picture
+        checksum (summed in int64, reduced mod 2^32) and the SSE (int64)."""
+        sao_maps = {}
+        if self.sao:
+            ry, rcb, rcr, sao_maps = self._sao(src_y, src_cb, src_cr, ry,
+                                               rcb, rcr)
+
         def cksum(plane, mask):
             return ((plane.to(torch.int64) & 0xFF) ^ mask).sum() & 0xFFFFFFFF
 
@@ -813,7 +1177,7 @@ class MdIntraPipeline:
             d = (a - b).to(torch.int64)
             return (d * d).sum()
 
-        return {
+        return {**sao_maps,
             "rec_y": ry.to(torch.uint8),
             "rec_cb": rcb.to(torch.uint8),
             "rec_cr": rcr.to(torch.uint8),

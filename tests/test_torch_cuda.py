@@ -10,9 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (compare_devices, kernel_errors,  # noqa: E402
-                        kernel_inputs, mixed_frames, tie_inputs,
-                        tie_planes)
+from chip_smoke import (TOOL_LDB, compare_devices,  # noqa: E402
+                        kernel_errors, kernel_inputs, mixed_frames,
+                        tie_inputs, tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -78,5 +78,21 @@ def test_cuda_stream_equals_cpu_stream():
             me.me_eval.launches - before[1]) == (2 * 8, 2 * 12)
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     assert all(r["waves"][0] > 0 for r in rows[1:])
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 3 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+def test_cuda_tool_row_equals_cpu():
+    """The tool row (SAO full, RDOQ and sign hiding at QP 27) gives the
+    CPU path's stream and maps on the GPU, SAO parameters included, with
+    the same kernel launches a B frame as the default configuration."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches)
+    stream, rows = compare_devices(mixed_frames(3, W, H), W, H, **TOOL_LDB)
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1]) == (2 * 8, 2 * 12)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 3 and all(p.hash_ok for p in pics)

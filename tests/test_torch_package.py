@@ -77,8 +77,7 @@ def test_encoder_targets_cuda_by_default():
 
 
 UNSUPPORTED = {
-    "sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
-    "signhide": dict(signhide_enable=True), "no_bipred": dict(bipred=False),
+    "no_bipred": dict(bipred=False),
     "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
     "gop8": dict(gop_len=8), "ref2": dict(ref_frames=2),
     "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
@@ -97,6 +96,38 @@ def test_unsupported_options_raise(name):
     cfg = Config(width=128, height=64, **UNSUPPORTED[name])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Encoder(cfg, device="cpu")
+
+
+TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
+         "signhide": dict(signhide_enable=True)}
+
+
+@pytest.mark.parametrize("name", sorted(TOOLS))
+def test_tool_options_encode_and_decode(name):
+    """Each option of the tool row builds on cuda unless the CPU is asked
+    for, and encodes IDR + B at 128x64 on the CPU (both pipelines), hash-
+    exact in the port's decoder."""
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    cfg = Config(width=128, height=64, qp=27, **TOOLS[name])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Encoder(cfg)
+    rng = np.random.RandomState(3)
+    frames = [(rng.randint(0, 256, (64, 128)).astype(np.uint8),
+               rng.randint(0, 256, (32, 64)).astype(np.uint8),
+               rng.randint(0, 256, (32, 64)).astype(np.uint8))]
+    frames.append(tuple(np.roll(p, 2, axis=1) for p in frames[0]))
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        stream, infos = encode_sequence(cfg, frames, device="cpu")
+    finally:
+        torch.set_num_threads(n_threads)
+    assert [i["slice_type"] for i in infos] == [2, 0]
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 2 and all(p.hash_ok for p in pics)
 
 
 def test_cli_encodes_on_cpu(tmp_path):

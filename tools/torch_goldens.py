@@ -8,9 +8,15 @@ tests/data/torch_golden_slice.npz:
 - stage outputs of one B frame whose JAX programs are too costly to
   compile inside the tier-1 test budget: the recon of the intra
   wavefront (`recon_*`) and the inter leaf / partition / batch recon
-  (`leafb_*`, `part_*`, `batch_*`), all on inputs made from fixed seeds.
+  (`leafb_*`, `part_*`, `batch_*`), all on inputs made from fixed seeds;
 
-Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py [out.npz]
+and in tests/data/torch_golden_tools.npz, per TOOL_CONFIGS entry, the
+stream (`<name>_stream`) and every frame's maps, SAO parameters included
+(`<name>_f{i}_<key>`), of slice_frames at 128x64 with SAO, RDOQ and
+sign-data hiding.
+
+Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py [slice|tools]
+(both files when no argument is given).
 """
 from __future__ import annotations
 
@@ -24,9 +30,22 @@ sys.path.insert(0, ROOT)
 
 W, H, N_FRAMES = 128, 64, 3
 OUT = os.path.join(ROOT, "tests", "data", "torch_golden_slice.npz")
+OUT_TOOLS = os.path.join(ROOT, "tests", "data", "torch_golden_tools.npz")
+SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
+            "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
+            "sao_c_offs_cr", "sao_c_pos_cr")
 MAP_KEYS = ("size_map8", "mode_map8", "inter8", "dir8", "mv8", "ref8",
             "mv8b", "ref8b", "levels_y", "levels_cb", "levels_cr", "hash",
-            "rec_y", "rec_cb", "rec_cr")
+            "rec_y", "rec_cb", "rec_cr") + SAO_KEYS
+# the tool-row goldens at QP 27: (configuration, frames). "intra" is
+# bench.py's scenario 1 tool row (deblocking, SAO full, RDOQ, no sign
+# hiding) all-intra; "ldb" adds sign hiding on IDR + 2 generalized-B.
+TOOL_CONFIGS = {
+    "intra": (dict(qp=27, intra_period=1, sao_type="full",
+                   rdoq_enable=True), 2),
+    "ldb": (dict(qp=27, sao_type="full", rdoq_enable=True,
+                 signhide_enable=True), 3),
+}
 
 
 def slice_frames(n: int = N_FRAMES) -> list:
@@ -44,12 +63,13 @@ def stage_inputs() -> dict:
     return {"src": frames[1], "ref": frames[0]}
 
 
-def jax_stream(frames) -> tuple[bytes, list[dict]]:
-    """Encode frames with kvazaar_tpu; returns (stream, decisions)."""
+def jax_stream(frames, **cfg) -> tuple[bytes, list[dict]]:
+    """Encode frames with kvazaar_tpu (Config options cfg); returns
+    (stream, decisions)."""
     from kvazaar_tpu.api import Encoder
     from kvazaar_tpu.cfg import Config
     enc = Encoder(Config(width=frames[0][0].shape[1],
-                         height=frames[0][0].shape[0]))
+                         height=frames[0][0].shape[0], **cfg))
     out, decs = b"", []
     for f in frames:
         chunk, _ = enc.encode_frame(*f)
@@ -112,18 +132,35 @@ def jax_stages() -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def main(path: str = OUT) -> None:
-    frames = slice_frames()
-    stream, decs = jax_stream(frames)
-    data = {"stream": np.frombuffer(stream, np.uint8)}
+def _stream_arrays(prefix: str, stream: bytes, decs: list) -> dict:
+    data = {prefix + "stream": np.frombuffer(stream, np.uint8)}
     for i, d in enumerate(decs):
         for k, v in d.items():
-            data[f"f{i}_{k}"] = v
-    data.update(jax_stages())
+            data[f"{prefix}f{i}_{k}"] = v
+    return data
+
+
+def _save(path: str, data: dict) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **data)
-    print(f"wrote {path}: stream {len(stream)} bytes, {len(data)} arrays")
+    print(f"wrote {path}: {len(data)} arrays")
+
+
+def write_slice_golden(path: str = OUT) -> None:
+    data = _stream_arrays("", *jax_stream(slice_frames()))
+    data.update(jax_stages())
+    _save(path, data)
+
+
+def write_tools_golden(path: str = OUT_TOOLS) -> None:
+    data = {}
+    for name, (cfg, n) in TOOL_CONFIGS.items():
+        data.update(_stream_arrays(name + "_",
+                                   *jax_stream(slice_frames(n), **cfg)))
+    _save(path, data)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    which = sys.argv[1:] or ["slice", "tools"]
+    for w in which:
+        {"slice": write_slice_golden, "tools": write_tools_golden}[w]()

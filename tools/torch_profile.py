@@ -14,8 +14,22 @@ IDR + B frames, default configuration) after a warm-up, and reports:
   time (the rest is the device idle). The profiled IDR frame alone takes
   a minute or more.
 
+With --wave it profiles the intra wavefront instead: one 1080p IDR frame
+at QP 27 with the default tools and with bench.py's scenario 1 tool row
+(SAO full + RDOQ), in turns (default, tool row, tool row, default). Per
+run: the unprofiled submit, wavefront and SAO ms and the waves, then the
+kernel launches and kernel-busy ms a wave step over the first
+WAVE_STEPS steps of a second encode of the frame (the step is the same
+ops on every step, masked over the class rows).
+
+With --recon it times the stages of IDR + 2 B frames at 1080p and QP 27
+with the default tools and with SAO full + RDOQ + sign hiding
+(chip_smoke.TOOL_LDB), in turns: per frame the submit, partition,
+batched inter recon, wavefront and SAO ms (host clock, synchronized).
+
 Usage (on a machine with a GPU):
     python3 tools/torch_profile.py [frames] [--leaf]
+    python3 tools/torch_profile.py --wave | --recon
 """
 from __future__ import annotations
 
@@ -29,7 +43,7 @@ sys.path.insert(0, ROOT)
 
 def main(n_frames: int = 3, leaf_only: bool = False) -> None:
     import torch
-    from chip_smoke import mixed_frames
+    from chip_smoke import mixed_frames, wrap_timed
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     w, h = 1920, 1080
@@ -39,25 +53,11 @@ def main(n_frames: int = 3, leaf_only: bool = False) -> None:
     enc = Encoder(Config(width=w, height=h))
     pipe = enc._pipeline
     stages: dict = {}
-
-    def timed(obj, name):
-        fn = getattr(obj, name)
-
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stages.setdefault(name, []).append(
-                (time.perf_counter() - t) * 1e3)
-            return r
-        setattr(obj, name, wrapper)
-
-    for name in ("_partition", "_partition_inter_b", "_coarse_field",
-                 "_me_sizes", "_leaf_rd", "_inter_leaf_b",
-                 "_inter_recon_batch", "_recon_md", "_deblock"):
-        timed(pipe, name)
-    timed(enc, "finalize_frame")
+    wrap_timed(torch, pipe, {k: k for k in (
+        "_partition", "_partition_inter_b", "_coarse_field", "_me_sizes",
+        "_leaf_rd", "_inter_leaf_b", "_inter_recon_batch", "_recon_md",
+        "_deblock")}, stages)
+    wrap_timed(torch, enc, {"finalize_frame": "finalize_frame"}, stages)
     walls = []
     for i, f in enumerate(frames[:-1]):
         stages.clear()
@@ -138,6 +138,102 @@ def main(n_frames: int = 3, leaf_only: bool = False) -> None:
                          text=True, timeout=60).stdout.strip(), flush=True)
 
 
+WAVE_STEPS = 24
+
+
+def wave_profile() -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import TOOL_ROW, mixed_frames, smi, wrap_timed
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.cfg import Config
+    w, h = 1920, 1080
+    frame = mixed_frames(1, w, h)[0]
+    cfgs = {"default": dict(qp=27, intra_period=1),
+            "tool row": dict(TOOL_ROW, intra_period=1)}
+    Encoder(Config(width=w, height=h, **cfgs["default"])).encode_frame(
+        *frame)                                   # warm-up, not counted
+    print(smi("name,power.limit"), flush=True)
+    for label in ("default", "tool row", "tool row", "default"):
+        enc = Encoder(Config(width=w, height=h, **cfgs[label]))
+        pipe = enc._pipeline
+        times: dict = {}
+        wrap_timed(torch, pipe, {k: k for k in ("submit", "_recon_md",
+                                                "_sao")}, times)
+        _, info = enc.encode_frame(*frame)
+        steps = -(-int(info["n_waves"]) // pipe.WAVE_CHECK) \
+            * pipe.WAVE_CHECK
+        wave_ms = times["_recon_md"][0]
+        print(f"{label}: IDR {info['bytes']} bytes, waves "
+              f"{info['n_waves']} ({steps} wave steps); submit "
+              f"{times['submit'][0]:.1f} ms, wavefront {wave_ms:.1f} ms "
+              f"({wave_ms / steps:.2f} ms a step), SAO "
+              f"{times.get('_sao', [0.0])[0]:.2f} ms", flush=True)
+        # profile the first WAVE_STEPS steps of a second encode
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        ready = pipe._class_ready
+        calls = [0]
+        state = {"t": 0.0}
+
+        def counted(*a, **kw):
+            if calls[0] == 0:
+                torch.cuda.synchronize()
+                prof.start()
+                state["t"] = time.perf_counter()
+            if calls[0] == WAVE_STEPS * len(pipe.SIZES):
+                torch.cuda.synchronize()
+                state["t"] = time.perf_counter() - state["t"]
+                prof.stop()
+            calls[0] += 1
+            return ready(*a, **kw)
+        pipe._class_ready = counted
+        enc.encode_frame(*frame)
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        launches = sum(e.count for e in ev)
+        print(f"  {WAVE_STEPS} profiled wave steps: {launches} kernel "
+              f"launches = {launches / WAVE_STEPS:.1f} a step, kernels "
+              f"busy {busy:.3f} ms = {busy / WAVE_STEPS:.4f} ms a step, "
+              f"host wall {state['t'] * 1e3:.1f} ms profiled", flush=True)
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:7d}  {e.key[:80]}", flush=True)
+
+
+def recon_compare() -> None:
+    import torch
+    from chip_smoke import TOOL_LDB, mixed_frames, smi, wrap_timed
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    w, h = 1920, 1080
+    frames = mixed_frames(3, w, h)
+    cfgs = {"default": dict(qp=TOOL_LDB["qp"]), "tools": TOOL_LDB}
+    encode_sequence(Config(width=w, height=h), frames[:2])   # warm-up
+    print(smi("name,power.limit"), flush=True)
+    stages = ("submit", "submit_inter_b", "_partition_inter_b",
+              "_inter_recon_batch", "_recon_md", "_sao")
+    for label in ("default", "tools", "tools", "default"):
+        enc = Encoder(Config(width=w, height=h, **cfgs[label]))
+        times: dict = {}
+        wrap_timed(torch, enc._pipeline, {k: k for k in stages}, times)
+        for i, f in enumerate(frames):
+            times.clear()
+            _, info = enc.encode_frame(*f)
+            parts = ", ".join(f"{k} {times[k][0]:.1f}" for k in stages
+                              if k in times)
+            print(f"{label} frame {i} ({info['bytes']} bytes, waves "
+                  f"{info['n_waves']}): {parts} ms", flush=True)
+
+
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:] if a != "--leaf"),
-         leaf_only="--leaf" in sys.argv[1:])
+    if "--wave" in sys.argv[1:]:
+        wave_profile()
+    elif "--recon" in sys.argv[1:]:
+        recon_compare()
+    else:
+        main(*(int(a) for a in sys.argv[1:] if a != "--leaf"),
+             leaf_only="--leaf" in sys.argv[1:])
