@@ -10,12 +10,14 @@ Phases (each prints its lines; any failure exits non-zero):
 3. kernel parity: me_refine and me_eval against their plain PyTorch
    versions at the 1080p shapes of the main path, bit-exact (tolerance
    0), on synthetic frames and on tie-heavy planes (me_eval with K = 1
-   and 4 pairs, every output flag, one plane for both lists and two);
-   each kernel's time, bound and blocks per SM per block size for one
-   B frame's launches in the main path's pattern, their sum, and the
-   plain versions' time. Bounds take each kernel's operations at the
-   rate of the pipe that runs them (PIPE_LANES: float32 for both), from
-   the card's SM count and maximum SM clock;
+   and 4 pairs, every output flag, on reference stacks of one and two
+   pictures with random and coinciding per-pair indices); each kernel's
+   time, bound and blocks per SM per block size for one B frame's
+   launches with two reference pictures a list, their sum, me_eval's
+   time on one picture, and the plain versions' time. Bounds take each
+   kernel's operations at the rate of the pipe that runs them
+   (PIPE_LANES: float32 for both), from the card's SM count and maximum
+   SM clock;
 4. main path: 1 IDR + 3 B frames of a 1920x1080 synthetic sequence
    through kvazaar_tpu_torch.api.encode_sequence on cuda, with the kernel
    launch counters read around it; every B frame must code intra leaves
@@ -32,9 +34,17 @@ Phases (each prints its lines; any failure exits non-zero):
    hash-exactly to the encoder's reconstruction, per frame the bytes,
    PSNR, waves and the submit, wavefront and SAO times; (c) config (b)
    at 416x240 (IDR + 1 B) on cuda and on the CPU: the same stream and
-   maps, SAO parameters included.
-The last lines are a JSON object of per-kernel numbers, the nvidia-smi
-name/power-limit line, and {"ok": true, "device": {...}}.
+   maps, SAO parameters included;
+7. low-delay (bench scenario 2): the low-delay GOP lp-g4d3t1 with two
+   references a list and scenario 1's tool row at QP 27, IDR + 5 B at
+   1920x1080 (16 me_refine and 12 me_eval launches a B frame),
+   hash-exact, some B frame predicting from a second reference picture
+   and some B frame running its wavefront; per frame POC, QP, list 0,
+   bytes, PSNR, waves and times; then the same configuration at 416x240
+   (6 frames) on cuda and on the CPU: the same stream and maps.
+The last lines are a JSON object of per-kernel numbers (launches summed
+over the encodes of phases 4, 6 and 7), the nvidia-smi name/power-limit
+line, and {"ok": true, "device": {...}}.
 
 The helpers mixed_frames, kernel_inputs, tie_planes, tie_inputs,
 kernel_errors, compare_devices, open_device and phase_kernels are shared
@@ -71,6 +81,10 @@ TOOL_ROW = dict(qp=27, deblock_enable=True, sao_type="full",
                 rdoq_enable=True, signhide_enable=False)
 TOOL_LDB = dict(qp=27, sao_type="full", rdoq_enable=True,
                 signhide_enable=True)
+# bench.py's scenario 2 (bench.py:232-233): the low-delay GOP lp-g4d3t1
+# with two references a list, run with the tool row
+LOWDELAY = dict(intra_period=0, gop_len=4, gop_lowdelay=True,
+                gop_lp=(3, 1), ref_frames=2)
 
 
 def fail(msg: str) -> None:
@@ -117,11 +131,13 @@ def mixed_frames(n, w, h):
     """synth_frames plus, per frame, a fresh random-texture patch and a
     gradient whose brightness changes (both in the top-left 128x64):
     content without a temporal match, so B frames mix intra and inter
-    leaves of several sizes. Needs w >= 128 and h >= 64."""
+    leaves of several sizes. The patch moves 8 down and 24 across a
+    frame, wrapping round inside the picture. Needs w >= 128 and
+    h >= 64."""
     rng = np.random.RandomState(8)
     out = []
     for i, (y, cb, cr) in enumerate(synth_frames(n, w, h)):
-        py, px = 8 + 8 * i, 16 + 24 * i
+        py, px = 8 + 8 * i % (h - 31), 16 + 24 * i % (w - 55)
         y[py:py + 24, px:px + 40] = rng.randint(0, 256, (24, 40))
         cb[py // 2:py // 2 + 12, px // 2:px // 2 + 20] = \
             rng.randint(60, 200, (12, 20))
@@ -140,8 +156,9 @@ def kernel_inputs(ref, src, n, K, gen):
     """The n x n blocks of src in raster order, K random full-pel
     candidates per block reaching +-100 px and EVAL_K random pairs of
     qpel MVs per block reaching +-100 px (both far outside the picture,
-    so the index clamping is exercised), on ref's device. Returns
-    (blocks, cands, (mv0, mv1), cols)."""
+    so the index clamping is exercised), each MV with a random index
+    into a stack of two reference pictures, on ref's device. Returns
+    (blocks, cands, (mv0, mv1, r0, r1), cols)."""
     import torch
     rows, cols = src.shape[0] // n, src.shape[1] // n
     L = rows * cols
@@ -152,7 +169,10 @@ def kernel_inputs(ref, src, n, K, gen):
     mvs = tuple(torch.randint(-400, 401, (L, EVAL_K, 2), generator=gen,
                               dtype=torch.int32).to(ref.device)
                 for _ in range(2))
-    return blocks, cands, mvs, cols
+    refs = tuple(torch.randint(0, 2, (L, EVAL_K), generator=gen,
+                               dtype=torch.int32).to(ref.device)
+                 for _ in range(2))
+    return blocks, cands, mvs + refs, cols
 
 
 def tie_planes(h, w):
@@ -172,12 +192,14 @@ def tie_inputs(plane, n, K, gen, device):
     """kernel_inputs on a tie_planes plane (as reference and source) with
     every block's candidates coinciding in pairs (cands[:, 2j + 1] =
     cands[:, 2j]), so whole candidates tie too, and me_eval's list 1 MVs
-    equal to list 0's. Returns (ref, blocks, cands, mvs, cols)."""
+    and reference indices equal to list 0's. Returns (ref, blocks, cands,
+    mvs, cols)."""
     import torch
     ref = torch.from_numpy(plane).to(device)
-    blocks, cands, (mv0, _), cols = kernel_inputs(ref, ref, n, K, gen)
+    blocks, cands, (mv0, _, r0, _), cols = kernel_inputs(ref, ref, n, K,
+                                                          gen)
     cands[:, 1::2] = cands[:, 0:K - K % 2:2]
-    return ref, blocks, cands, (mv0, mv0.clone()), cols
+    return ref, blocks, cands, (mv0, mv0.clone(), r0, r0.clone()), cols
 
 
 # me_eval's calls on the main path, per block size of a B frame: (pairs,
@@ -195,15 +217,23 @@ def _max_diff(got, want):
 def eval_errors(me, ref, blocks, mvs, n, cols, ref1):
     """Largest absolute difference between me_eval's outputs and its plain
     version's on the same inputs, in each call pattern of EVAL_CALLS and
-    with both outputs, with ref for both lists and with ref1 for list 1
-    (8 launches)."""
+    with both outputs, on three pairs of reference stacks: [ref] for both
+    lists (indices 0); [ref, ref1] for both lists; [ref, ref1] for list 0
+    and [ref1, ref] for list 1, the last two with the per-pair indices of
+    mvs = (mv0, mv1, r0, r1) (12 launches)."""
+    import torch
+
     def flat(out):
         return [t for part in out if part is not None for t in part]
+    mv0, mv1, r0, r1 = mvs
+    one, two = ref[None], torch.stack([ref, ref1])
+    zero = torch.zeros_like(r0)
     err = 0
-    for r1 in (ref, ref1):
+    for s0, s1, i0, i1 in ((one, one, zero, zero), (two, two, r0, r1),
+                           (two, two.flip(0), r0, r1)):
         for k, want_satd, want_pred in EVAL_CALLS + ((1, True, True),):
-            args = (ref, r1, blocks, mvs[0][:, :k].contiguous(),
-                    mvs[1][:, :k].contiguous())
+            args = (s0, s1, blocks) + tuple(
+                a[:, :k].contiguous() for a in (mv0, mv1, i0, i1))
             kw = dict(n=n, cols=cols, want_satd=want_satd,
                       want_pred=want_pred)
             err = max(err, _max_diff(flat(me.me_eval(*args, **kw)),
@@ -262,8 +292,8 @@ def refine_work(n, L, K, hp, wp):
 
 
 def eval_work(n, L, K, hp, wp, planes, want_satd, want_pred):
-    """One me_eval call of K pairs a block on `planes` distinct reference
-    planes (1 where list 1 is list 0): per list the horizontal and
+    """One me_eval call of K pairs a block that reads `planes` distinct
+    reference pictures (eval_pictures): per list the horizontal and
     vertical 8-tap passes and the rounding; with want_satd the
     bi-average and three SATDs (difference, 2-D butterflies, |t|, sum)."""
     nbytes = 4 * (planes * hp * wp + L * n * n + 2 * L * K * 2
@@ -273,6 +303,18 @@ def eval_work(n, L, K, hp, wp, planes, want_satd, want_pred):
     if want_satd:
         per_pair += n * n * 4 + 3 * 9 * n * n
     return nbytes, L * K * per_pair
+
+
+def eval_pictures(args) -> int:
+    """Distinct reference pictures that an me_eval call (ref0, ref1,
+    blocks, mv0, mv1, r0, r1) reads: the planes its indices name, counted
+    once where both lists share one stack."""
+    import torch
+    s0, s1, _, _, _, r0, r1 = args
+    if s0 is s1:
+        return int(torch.cat([r0.reshape(-1), r1.reshape(-1)])
+                   .unique().numel())
+    return int(r0.unique().numel() + r1.unique().numel())
 
 
 def bound_ms(works, ops_rate):
@@ -335,18 +377,24 @@ def time_calls(fn, reps: int) -> tuple:
 def phase_kernels(me, torch, rates):
     """Bit-exact parity of both kernels with their plain versions at the
     slice's 1080p shapes, on the synthetic frames and on the tie-heavy
-    planes; then per block size each kernel's time, bound and blocks per
-    SM for one B frame's launches in the main path's pattern (me_refine
-    once per list; me_eval as EVAL_CALLS, both lists on one plane), the
-    B frame's time as their sum, and the plain versions' time for the
-    same launches. rates: ops_rates."""
+    planes (me_eval on reference stacks with random and coinciding
+    per-pair indices, eval_errors); then per block size each kernel's
+    time, bound and blocks per SM for one B frame's launches with two
+    reference pictures a list, list 1 being list 0 (the low-delay GOP's
+    pattern: me_refine once per list and picture; me_eval as EVAL_CALLS
+    on the two-picture stack with random per-pair indices), the B frame's
+    time as their sum, the plain versions' time for the same launches,
+    and me_eval's time for the same calls on one picture (the default
+    configuration's pattern). rates: ops_rates."""
     hp, wp = H + (-H) % 64, W + (-W) % 64
     ref, src, ref1 = (torch.from_numpy(f[0].astype(np.int32)).cuda()
                       for f in synth_frames(3, wp, hp))
+    stack, one = torch.stack([ref, ref1]), ref[None]
     lam = torch.tensor([153], dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     err = {"me_refine": 0, "me_eval": 0}
     calls = {"me_refine": {}, "me_eval": {}}
+    calls_one = {}
     for n in (8, 16, 32, 64):
         K = 2 if n <= 16 else 5
         blocks, cands, mvs, cols = kernel_inputs(ref, src, n, K, gen)
@@ -354,8 +402,8 @@ def phase_kernels(me, torch, rates):
         err = {k: max(v, e[k]) for k, v in err.items()}
         print(f"parity n={n} L={blocks.shape[0]} K={K}: max_abs_err "
               f"me_refine {e['me_refine']}, me_eval (K = 1 and "
-              f"{EVAL_K}, every output, one and two planes) "
-              f"{e['me_eval']}", flush=True)
+              f"{EVAL_K}, every output, stacks of one and two pictures, "
+              f"random indices) {e['me_eval']}", flush=True)
         for name, plane, lam_t in tie_planes(hp, wp):
             t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(
                 plane, n, K, gen, "cuda")
@@ -366,17 +414,24 @@ def phase_kernels(me, torch, rates):
             err = {k: max(v, e[k]) for k, v in err.items()}
             print(f"parity n={n} tie-heavy {name} (lam64 {lam_t}): "
                   f"max_abs_err me_refine {e['me_refine']}, me_eval "
-                  f"{e['me_eval']}", flush=True)
-        # one B frame at this size: me_refine once per list; me_eval in
-        # the main path's pattern, list 1 being list 0
+                  f"(coinciding indices) {e['me_eval']}", flush=True)
+        # one B frame at this size with two pictures a list, list 1 being
+        # list 0: me_refine per list and picture; me_eval in the main
+        # path's pattern on the stack
         calls["me_refine"][n] = [
-            ((ref, blocks, cands, lam), dict(n=n, cols=cols)),
-        ] * 2
-        calls["me_eval"][n] = [
-            ((ref, ref, blocks, mvs[0][:, :k].contiguous(),
-              mvs[1][:, :k].contiguous()),
-             dict(n=n, cols=cols, want_satd=want_satd, want_pred=want_pred))
-            for k, want_satd, want_pred in EVAL_CALLS]
+            ((r, blocks, cands, lam), dict(n=n, cols=cols))
+            for r in (ref, ref1)] * 2
+        mv0, mv1, r0, r1 = mvs
+        zero = torch.zeros_like(r0)
+
+        def pattern(st, i0, i1):
+            return [((st, st, blocks) + tuple(
+                a[:, :k].contiguous() for a in (mv0, mv1, i0, i1)),
+                dict(n=n, cols=cols, maxv=255, want_satd=want_satd,
+                     want_pred=want_pred))
+                for k, want_satd, want_pred in EVAL_CALLS]
+        calls["me_eval"][n] = pattern(stack, r0, r1)
+        calls_one[n] = pattern(one, zero, zero)
     if any(err.values()):
         fail(f"kernel/plain mismatch {err}")
 
@@ -385,17 +440,24 @@ def phase_kernels(me, torch, rates):
             return refine_work(kw["n"], args[1].shape[0], args[2].shape[1],
                                hp, wp)
         return eval_work(kw["n"], args[2].shape[0], args[3].shape[1], hp,
-                         wp, 1 if args[0] is args[1] else 2,
-                         kw["want_satd"], kw["want_pred"])
+                         wp, eval_pictures(args), kw["want_satd"],
+                         kw["want_pred"])
+
+    def timed(kernel, cs):
+        def run():
+            for args, kw in cs:
+                kernel(*args, **kw)
+        return time_calls(run, 10)[0]
+    # the kernels alone: me_eval's launches go through me.launch_eval,
+    # without the wrapper's index check (it waits for the device); the
+    # parity runs above checked the same arguments
+    kernels = {"me_refine": me.me_refine, "me_eval": me.launch_eval}
     out = {}
     for name, per_size in calls.items():
-        kernel, plain = getattr(me, name), getattr(me, f"{name}_plain")
+        kernel, plain = kernels[name], getattr(me, f"{name}_plain")
         total_ms, works = 0.0, []
         for n, cs in per_size.items():
-            def run():
-                for args, kw in cs:
-                    kernel(*args, **kw)
-            ms = time_calls(run, 10)[0]
+            ms = timed(kernel, cs)
             total_ms += ms
             ws = [work(name, args, kw) for args, kw in cs]
             works += ws
@@ -420,22 +482,33 @@ def phase_kernels(me, torch, rates):
         out[name] = dict(ms=total_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=err[name],
                          calls=len(works))
-        print(f"time {name}: one B frame's {len(works)} launches "
-              f"{total_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        print(f"time {name}: one two-reference B frame's {len(works)} "
+              f"launches {total_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}, {PIPE_LANES[name][0]} rate)",
               flush=True)
+    one_ms = {n: timed(me.launch_eval, cs) for n, cs in calls_one.items()}
+    works = [work("me_eval", a, kw) for cs in calls_one.values()
+             for a, kw in cs]
+    b_ms, b_by = bound_ms(works, rates["me_eval"])
+    out["me_eval"]["one_ref_ms"] = sum(one_ms.values())
+    print(f"time me_eval: the same {len(works)} launches on one picture "
+          f"(default configuration) {sum(one_ms.values()):.4f} ms ("
+          + " / ".join(f"{v:.4f}" for v in one_ms.values())
+          + f" by size), bound {b_ms:.4f} ms by {b_by}", flush=True)
     return out
 
 
 def encode_timed(torch, me, cfg, frames, label):
     """Encode frames through encode_sequence on cuda with the Config
     options cfg, the kernel launch counters set to 0 just before and read
-    just after. Prints the run and, per frame, bytes, PSNR, waves and the
-    host-clock times (synchronized) of the frame's submit, its wavefront,
-    its SAO and its host entropy coding. Fails unless every frame was
-    coded by the native slice writers, the B frames launched me_refine 8
-    and me_eval 12 times each, and the stream decodes hash-exactly to the
-    encoder's reconstruction. Returns (launches, infos)."""
+    just after. Prints the run and, per frame, POC, QP, list 0, bytes,
+    PSNR, waves and the host-clock times (synchronized) of the frame's
+    submit, its wavefront, its SAO and its host entropy coding. Fails
+    unless every frame was coded by the native slice writers, each B
+    frame launched me_refine 8 times a reference picture of its stacks
+    (4 sizes x 2 lists) and me_eval 12 times, and the stream decodes
+    hash-exactly to the encoder's reconstruction. Returns (launches,
+    infos, per-frame reference maps: inter8, dir8, ref8, ref8b)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
@@ -446,6 +519,17 @@ def encode_timed(torch, me, cfg, frames, label):
                {"submit": "submit", "submit_inter_b": "submit",
                 "_recon_md": "wavefront", "_sao": "sao"}, times)
     wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
+    lists, maps = [], []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        lists.append(list(meta["l0"]))
+        maps.append({k: np.asarray(enc._last_decisions[k])
+                     for k in ("inter8", "dir8", "ref8", "ref8b")
+                     if k in enc._last_decisions})
+        return out
+    enc.finalize_frame = record
     me.me_refine.launches = 0
     me.me_eval.launches = 0
     t0 = time.perf_counter()
@@ -455,21 +539,23 @@ def encode_timed(torch, me, cfg, frames, label):
     launches = {"me_refine": me.me_refine.launches,
                 "me_eval": me.me_eval.launches}
     n_b = sum(1 for i in infos if i["slice_type"] == 0)
-    # per B frame: me_refine per list and size (2 x 4); me_eval per size
-    # as EVAL_CALLS (the winners' pair, the merge candidates, the final
-    # prediction) x 4 sizes
-    expect = {"me_refine": 8 * n_b, "me_eval": 4 * len(EVAL_CALLS) * n_b}
+    # per B frame: me_refine per list, picture and size (2 x R x 4);
+    # me_eval per size as EVAL_CALLS (the winners' pair, the merge
+    # candidates, the final prediction) x 4 sizes
+    n_pics = getattr(enc._pipeline, "n_refs_b", 1)
+    expect = {"me_refine": 8 * n_pics * n_b,
+              "me_eval": 4 * len(EVAL_CALLS) * n_b}
     print(f"{label}: {len(infos)} frames ({n_b} B) at {w}x{h} in "
           f"{wall:.3f} s = {len(infos) / wall:.4f} fps, {len(stream)} "
           f"bytes, launches {launches} (expected {expect}), native slices "
           f"{enc.native_slices}", flush=True)
     sao = times["sao"] or [None] * len(infos)
-    for k, (i, sub, wav, sao_ms, host) in enumerate(zip(
+    for k, (i, sub, wav, sao_ms, host, l0) in enumerate(zip(
             infos, times["submit"], times["wavefront"], sao,
-            times["host"])):
+            times["host"], lists)):
         kind = "IDR" if i["slice_type"] == 2 else "B"
-        print(f"  frame {k} {kind} (POC {i['poc']}): {i['bytes']} bytes, "
-              f"PSNR Y "
+        print(f"  frame {k} {kind} (POC {i['poc']}, QP {i['qp']}, l0 "
+              f"{l0}): {i['bytes']} bytes, PSNR Y "
               f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
               f"{i['psnr'][2]:.4f}, waves {i['n_waves']}; submit wall "
               f"{sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
@@ -493,7 +579,15 @@ def encode_timed(torch, me, cfg, frames, label):
                    zip(p.planes, i["recon_out"])):
             fail(f"{label}: decoded planes differ from the encoder's "
                  "reconstruction")
-    return launches, infos
+    return launches, infos, maps
+
+
+def second_ref_blocks(m: dict) -> int:
+    """8x8 cells of a B frame's maps whose inter prediction uses picture
+    1 of list 0 or of list 1."""
+    inter, d = m["inter8"].astype(bool), m["dir8"]
+    return int((inter & (((d & 1) != 0) & (m["ref8"] == 1)
+                         | ((d & 2) != 0) & (m["ref8b"] == 1))).sum())
 
 
 def phase_main(torch, me):
@@ -506,7 +600,7 @@ def phase_main(torch, me):
     # warm-up encode (library initialisation, allocator), not counted
     encode_sequence(Config(width=W, height=H), frames[:2], device="cuda")
     torch.cuda.synchronize()
-    launches, infos = encode_timed(torch, me, {}, frames, "main path")
+    launches, infos, _ = encode_timed(torch, me, {}, frames, "main path")
     if any(int(i["n_waves"]) == 0 for i in infos if i["slice_type"] == 0):
         fail("a B frame coded no intra leaf: its wavefront did not run")
     return launches
@@ -515,11 +609,11 @@ def phase_main(torch, me):
 def phase_tools(torch, me):
     """The tool row: (a) bench scenario 1, 2 all-intra frames at 1080p;
     (b) IDR + 2 B at 1080p with sign hiding too; (c) config (b) at
-    416x240 on cuda and on the CPU."""
-    encode_timed(torch, me, dict(TOOL_ROW, intra_period=1),
-                 mixed_frames(2, W, H), "tool row (a) all-intra")
-    encode_timed(torch, me, TOOL_LDB, mixed_frames(3, W, H),
-                 "tool row (b) IDR + B")
+    416x240 on cuda and on the CPU. Returns the launches of (a) and (b)."""
+    la = encode_timed(torch, me, dict(TOOL_ROW, intra_period=1),
+                      mixed_frames(2, W, H), "tool row (a) all-intra")[0]
+    lb = encode_timed(torch, me, TOOL_LDB, mixed_frames(3, W, H),
+                      "tool row (b) IDR + B")[0]
     t = time.perf_counter()
     _, rows = compare_devices(mixed_frames(2, 416, 240), 416, 240,
                               **TOOL_LDB)
@@ -532,6 +626,41 @@ def phase_tools(torch, me):
           flush=True)
     if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
         fail("tool row: cuda and CPU encodes differ")
+    return {k: la[k] + lb[k] for k in la}
+
+
+def phase_lowdelay(torch, me):
+    """Bench scenario 2 with the tool row: 6 frames (IDR + 5 B: the
+    padded POC 1, every layer of lp-g4d3t1, both references from POC 2
+    on) at 1080p through encode_sequence on cuda, hash-exact; some B
+    frame must predict from a second reference picture (outside POC 1,
+    whose lists repeat one picture) and some B frame must run its
+    wavefront. Then the same configuration at 416x240 on cuda and on the
+    CPU: the same stream and maps. Returns the launches of the 1080p
+    encode."""
+    cfg = dict(TOOL_ROW, **LOWDELAY)
+    launches, infos, maps = encode_timed(
+        torch, me, cfg, mixed_frames(6, W, H), "low-delay (bench scenario 2)")
+    second = {i["poc"]: second_ref_blocks(m) for i, m in zip(infos, maps)
+              if i["slice_type"] == 0}
+    print(f"  8x8 cells predicted from a second reference picture, by "
+          f"POC: {second}", flush=True)
+    if not any(v for p, v in second.items() if p != 1):
+        fail("low-delay: no B frame predicts from a second reference")
+    if not any(int(i["n_waves"]) for i in infos if i["slice_type"] == 0):
+        fail("low-delay: no B frame coded an intra leaf (no wavefront)")
+    t = time.perf_counter()
+    _, rows = compare_devices(mixed_frames(6, 416, 240), 416, 240, **cfg)
+    for i, r in enumerate(rows):
+        print(f"low-delay device parity 416x240 frame {i}: stream "
+              f"identical {r['same_stream']}, differing maps "
+              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
+              flush=True)
+    print(f"low-delay device parity: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
+        fail("low-delay: cuda and CPU encodes differ")
+    return launches
 
 
 def phase_device_parity():
@@ -603,10 +732,13 @@ def main() -> None:
           flush=True)
 
     kern = phase_kernels(me, torch, rates)
-    launches = phase_main(torch, me)
+    runs = [phase_main(torch, me)]
     phase_device_parity()
-    phase_tools(torch, me)
-    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
+    runs.append(phase_tools(torch, me))
+    runs.append(phase_lowdelay(torch, me))
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "
+          f"of the encodes {launches}", flush=True)
 
     src = {"me_refine": ("kvazaar_tpu_torch/csrc/me_refine.cu",
                          "kvazaar_tpu/ops/pallas_me.py:346"),

@@ -4,9 +4,12 @@ Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
 at a time, returning Annex-B chunks) for the configuration this port
 covers: CTB 64, 8-bit, constant QP, deblocking, SAO, RDOQ and sign-data
 hiding, an IDR every `intra_period` frames and generalized-B low-delay
-frames in between (both lists = the previous reconstruction,
-bi-prediction on). Options outside that raise NotImplementedError naming
-their ROADMAP.md entry.
+frames in between (list 1 = list 0, bi-prediction on) with 1-4 reference
+pictures (--ref; the B program searches the first two of each list), and
+the low-delay GOP (--gop lp-gGdDtT: per-layer QP offsets, keyframe
+references and selective retention of reference pictures). Options
+outside that (the GOP8 pyramid, --open-gop, the P program) raise
+NotImplementedError naming their ROADMAP.md entry.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
 there as the reference pictures; the native C++ slice writers code the
@@ -17,10 +20,11 @@ from __future__ import annotations
 import numpy as np
 
 from .bitstream import (BitWriter, NAL_IDR_W_RADL, NAL_PPS, NAL_SPS,
-                        NAL_SUFFIX_SEI, NAL_TRAIL_R, NAL_VPS, nal_unit,
-                        rbsp_to_ebsp)
+                        NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R, NAL_VPS,
+                        nal_unit, rbsp_to_ebsp)
 from .cabac import CabacEncoder, ContextSet
 from .cfg import Config
+from .engine.gop import intra_qp_offset, lp_gop_table
 from .hevc.headers import write_pps, write_slice_header, write_sps, write_vps
 from .hevc.params import PPS, SPS, ShortTermRPS, SliceHeader
 from .hevc.sei import HASH_CHECKSUM, HASH_MD5, write_hash_sei
@@ -46,8 +50,13 @@ def build_sps(cfg: Config) -> SPS:
     sps.amp_enabled = 0
     sps.strong_intra_smoothing = 1 if cfg.strong_intra_smoothing else 0
     sps.temporal_mvp_enabled = 1 if cfg.intra_period != 1 else 0
-    sps.max_dec_pic_buffering_minus1 = max(1, cfg.ref_frames)
-    sps.max_num_reorder_pics = 0
+    if cfg.gop_len > 1:
+        # up to 4 retained references + the current picture
+        sps.max_dec_pic_buffering_minus1 = 4
+        sps.max_num_reorder_pics = cfg.gop_len - 1
+    else:
+        sps.max_dec_pic_buffering_minus1 = max(1, cfg.ref_frames)
+        sps.max_num_reorder_pics = 0
     sps.vui_timing = (cfg.framerate_denom, cfg.framerate_num)
     from .hevc.levels import select_level
     if cfg.level:
@@ -85,8 +94,8 @@ def check_config(cfg: Config) -> None:
             (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
             (not cfg.bipred, "--no-bipred (the P program)", p_prog),
             (cfg.smp_enable or cfg.amp_enable, "--smp/--amp", p_prog),
-            (cfg.gop_len > 1 or cfg.gop_lowdelay, "GOP structures", gop),
-            (cfg.ref_frames != 1, "--ref above 1", gop),
+            (cfg.gop_len > 1 and not cfg.gop_lowdelay,
+             "B-pyramid GOPs (--gop 2/4/8/16)", gop),
             (cfg.open_gop, "--open-gop", gop),
             (cfg.input_bitdepth != 8, "10-bit", intra),
             (cfg.trskip_enable, "transform skip", intra),
@@ -112,7 +121,8 @@ def check_config(cfg: Config) -> None:
 
 
 class Encoder:
-    """HEVC encoder: IDR + generalized-B low-delay on the quadtree path."""
+    """HEVC encoder: IDR + generalized-B low-delay (optionally the lp GOP)
+    on the quadtree path."""
 
     def __init__(self, cfg: Config, device="cuda") -> None:
         import torch
@@ -134,7 +144,7 @@ class Encoder:
         self.frame_num = 0
         self.poc = 0
         self.inter_enabled = cfg.intra_period != 1
-        self.n_refs = 1
+        self.n_refs = max(1, min(cfg.ref_frames, 4))
         kw = dict(deblock=cfg.deblock_enable, deblock_beta=cfg.deblock_beta,
                   deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
                   rdoq=cfg.rdoq_enable, sign_hiding=cfg.signhide_enable,
@@ -142,11 +152,17 @@ class Encoder:
         if self.inter_enabled:
             from .models.inter_md import MdInterPipeline
             self._pipeline = MdInterPipeline(self.sps.height,
-                                             self.sps.width, cfg.qp, **kw)
+                                             self.sps.width, cfg.qp,
+                                             n_refs=self.n_refs, **kw)
         else:
             from .models.intra_md import MdIntraPipeline
             self._pipeline = MdIntraPipeline(self.sps.height,
                                              self.sps.width, cfg.qp, **kw)
+        # the low-delay GOP's per-position plan (--gop lp-gGdDtT)
+        self._lp = None
+        if cfg.gop_lowdelay and self.inter_enabled:
+            self._lp = lp_gop_table(cfg.gop_len, *cfg.gop_lp,
+                                    max(1, cfg.ref_frames))
         # DPB: newest-first reconstructed reference pictures (device)
         self._dpb: list[dict] = []
         # TMVP collocated motion fields per coded reference frame
@@ -154,9 +170,15 @@ class Encoder:
         # slices coded by the native (C++) writers, for run reports
         self.native_slices = 0
 
-    def _push_ref(self, entry: dict) -> None:
+    def _push_ref(self, entry: dict, keep: set | None = None) -> None:
+        """Add a reference picture: the DPB then keeps the n_refs newest,
+        or the POCs of `keep` (the lp GOP's retention set)."""
         self._dpb.insert(0, entry)
-        del self._dpb[self.n_refs:]
+        if keep is None:
+            del self._dpb[self.n_refs:]
+        else:
+            kept = set(keep) | {entry["poc"]}
+            self._dpb = [e for e in self._dpb if e["poc"] in kept]
 
     def headers(self) -> bytes:
         out = nal_unit(write_vps(self.sps), NAL_VPS)
@@ -178,29 +200,56 @@ class Encoder:
         if is_idr:
             self.poc = 0
             self._dpb.clear()
-        l0 = [] if is_idr else [e["poc"] for e in self._dpb]
+        dpb_pocs = [e["poc"] for e in self._dpb]
+        is_ref, keep, qp_offset = True, None, 0
+        if self._lp is not None and not is_idr:
+            # low-delay GOP: layered QP, the nearest lower-layer picture
+            # and earlier keyframes as references, selective retention
+            g = cfg.gop_len
+            ent = self._lp[(self.poc - 1) % g]
+            l0 = []
+            for delta in ent["ref_neg"]:
+                p = self.poc - delta
+                if p >= 0 and p in dpb_pocs and p not in l0:
+                    l0.append(p)
+            if not l0 and dpb_pocs:
+                l0 = dpb_pocs[:1]
+            keys = sorted((p for p in dpb_pocs if p % g == 0),
+                          reverse=True)[:cfg.ref_frames]
+            keep = set(keys) | set(l0) | set(dpb_pocs[:1])
+            l0 = l0[:max(1, cfg.ref_frames)]
+            is_ref = bool(ent["is_ref"])
+            qp_offset = ent["qp_offset"]
+        else:
+            l0 = [] if is_idr else dpb_pocs
+            if is_idr and self._lp is not None:
+                qp_offset = intra_qp_offset(cfg.gop_len)
+        qp = cfg.qp + qp_offset
         if self.pad_w or self.pad_h:
             y = np.pad(y, ((0, self.pad_h), (0, self.pad_w)), mode="edge")
             cb = np.pad(cb, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
             cr = np.pad(cr, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
-        meta = {"is_idr": is_idr, "poc": self.poc, "qp": cfg.qp,
+        meta = {"is_idr": is_idr, "poc": self.poc, "qp": qp,
                 "frame_num": self.frame_num, "y": y, "cb": cb, "cr": cr,
                 "slice_type": 2 if is_idr else 0, "l0": l0,
-                "l1": list(l0)}
+                "l1": list(l0), "is_ref": is_ref}
         if is_idr:
-            meta["dev"] = self._pipeline.submit(y, cb, cr, qp=cfg.qp)
+            meta["dev"] = self._pipeline.submit(y, cb, cr, qp=qp)
         else:
-            refs = [e for e in self._dpb if e["poc"] in l0]
+            by_poc = {e["poc"]: e for e in self._dpb}
+            refs = [by_poc[p] for p in l0]
             lists = ([e["y"] for e in refs], [e["cb"] for e in refs],
                      [e["cr"] for e in refs])
             meta["dev"] = self._pipeline.submit_inter_b(
-                y, cb, cr, lists, lists, l0, l0, qp=cfg.qp)
-        if self.inter_enabled:
+                y, cb, cr, lists, lists, l0, l0, qp=qp)
+        if self.inter_enabled and is_ref:
             self._push_ref({"poc": self.poc, "y": meta["dev"]["rec_y"],
                             "cb": meta["dev"]["rec_cb"],
-                            "cr": meta["dev"]["rec_cr"]})
+                            "cr": meta["dev"]["rec_cr"]}, keep)
+        # the RPS names the retained DPB (after this frame) and the
+        # frame's own references
         meta["dpb_pocs"] = [e["poc"] for e in self._dpb]
         self.frame_num += 1
         self.poc += 1
@@ -307,14 +356,16 @@ class Encoder:
     def finalize_frame(self, meta: dict) -> tuple[bytes, dict]:
         cfg = self.cfg
         is_idr = meta["is_idr"]
-        nal_type = NAL_IDR_W_RADL if is_idr else NAL_TRAIL_R
+        nal_type = (NAL_IDR_W_RADL if is_idr else
+                    NAL_TRAIL_R if meta["is_ref"] else NAL_TRAIL_N)
         sh = self._slice_header(meta)
         decisions = self._pipeline.materialize(meta["dev"])
         self._last_decisions = decisions
         substreams, motion = self._slice_data(meta, sh, decisions)
 
-        # snapshot this frame's motion field for future TMVP
-        if self.inter_enabled and self.sps.temporal_mvp_enabled:
+        # snapshot a reference frame's motion field for future TMVP
+        if (self.inter_enabled and meta["is_ref"]
+                and self.sps.temporal_mvp_enabled):
             if is_idr:
                 self._motion_fields.clear()
             if motion is not None:

@@ -1,6 +1,7 @@
-// me_eval: exact evaluation of K candidate pairs (list 0 MV, list 1 MV)
-// per source block: both 14-bit predictions, their two uni-prediction
-// SATDs and the SATD of their exact bi-prediction average.
+// me_eval: exact evaluation of K candidate pairs (list 0 MV and
+// reference, list 1 MV and reference) per source block: both 14-bit
+// predictions, their two uni-prediction SATDs and the SATD of their exact
+// bi-prediction average.
 //
 // Replaces the TPU kernel kvazaar_tpu/ops/pallas_me.py me_eval
 // (pallas_call at :467; me_eval :489, make_eval_kernel :395,
@@ -11,7 +12,8 @@
 // version is kvazaar_tpu_torch/ops/me.py me_eval_plain.
 //
 // Per block b and pair k, for list l in {0, 1}: the exact HEVC 8-tap
-// luma interpolation at mv_l[b, k] on ref_l, v_l = (sum_k fy[k] h) >> 6
+// luma interpolation at mv_l[b, k] on plane r_l[b, k] of the reference
+// stack ref_l [R_l, H, W], v_l = (sum_k fy[k] h) >> 6
 // (the 14-bit intermediate); then, with want_satd, the SATD (8x8
 // Hadamard tiles, (sum|t| + 2) >> 2 per tile) of the source minus
 // clamp((v_l + 32) >> 6) for each list and minus
@@ -57,7 +59,10 @@
 //    and floorf(a * 2^-s) equals a >> s; the wrapper refuses larger
 //    maxv. Tile results are converted to int before the block sums.
 // The reference planes are read unpadded with every index clamped,
-// which equals edge padding. ref0 and ref1 may be the same plane.
+// which equals edge padding. ref0 and ref1 may be the same stack. The
+// wrapper checks that every reference index names a plane of its stack;
+// the kernel reads the plane's base once a pair (ref + r * H * W), so a
+// reference stack costs no more than one plane beyond that load.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -236,6 +241,7 @@ __global__ void __launch_bounds__(EvalGeom<N>::THREADS,
 me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
                int H, int W, const int* __restrict__ src,
                const int* __restrict__ mv0, const int* __restrict__ mv1,
+               const int* __restrict__ ri0, const int* __restrict__ ri1,
                int K, int L, int cols, int maxv, int* __restrict__ satd_out,
                int* __restrict__ pred_out) {
     using G = EvalGeom<N>;
@@ -278,11 +284,14 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
         const size_t m = ((size_t)b * K + k) * 2;
         const int ax = mv0[m], ay = mv0[m + 1];
         const int bx = mv1[m], by = mv1[m + 1];
+        const size_t plane = (size_t)H * W;
+        const int* pl0 = ref0 + ri0[m >> 1] * plane;
+        const int* pl1 = ref1 + ri1[m >> 1] * plane;
         float v0[8], v1[8];
         if (G::BUFS == 2) {
-            load_window<N>(ref0, H, W, y0 + (ay >> 2) - 3,
+            load_window<N>(pl0, H, W, y0 + (ay >> 2) - 3,
                            x0 + (ax >> 2) - 3, s_win0, t);
-            load_window<N>(ref1, H, W, y0 + (by >> 2) - 3,
+            load_window<N>(pl1, H, W, y0 + (by >> 2) - 3,
                            x0 + (bx >> 2) - 3, s_win1, t);
             group_sync<N>();
             hpass<N>(s_win0, s_h0, s_taps + (ax & 3) * 8, t);
@@ -291,13 +300,13 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
             vpass<N>(s_h0, s_taps + (ay & 3) * 8, x, ty, v0);
             vpass<N>(s_h1, s_taps + (by & 3) * 8, x, ty, v1);
         } else {
-            load_window<N>(ref0, H, W, y0 + (ay >> 2) - 3,
+            load_window<N>(pl0, H, W, y0 + (ay >> 2) - 3,
                            x0 + (ax >> 2) - 3, s_win0, t);
             group_sync<N>();
             hpass<N>(s_win0, s_h0, s_taps + (ax & 3) * 8, t);
             group_sync<N>();
             vpass<N>(s_h0, s_taps + (ay & 3) * 8, x, ty, v0);
-            load_window<N>(ref1, H, W, y0 + (by >> 2) - 3,
+            load_window<N>(pl1, H, W, y0 + (by >> 2) - 3,
                            x0 + (bx >> 2) - 3, s_win1, t);
             group_sync<N>();
             hpass<N>(s_win1, s_h1, s_taps + (bx & 3) * 8, t);
@@ -360,17 +369,17 @@ cudaError_t prepare(size_t* smem) {
 
 template <int N>
 cudaError_t launch(const int* ref0, const int* ref1, int H, int W,
-                   const int* src, const int* mv0, const int* mv1, int K,
-                   int L, int cols, int maxv, int* satd, int* pred,
-                   cudaStream_t stream) {
+                   const int* src, const int* mv0, const int* mv1,
+                   const int* ri0, const int* ri1, int K, int L, int cols,
+                   int maxv, int* satd, int* pred, cudaStream_t stream) {
     using G = EvalGeom<N>;
     size_t smem;
     cudaError_t e = prepare<N>(&smem);
     if (e != cudaSuccess) return e;
     if (L > 0 && K > 0)
         me_eval_kernel<N><<<(L + G::P - 1) / G::P, G::THREADS, smem,
-                            stream>>>(ref0, ref1, H, W, src, mv0, mv1, K, L,
-                                      cols, maxv, satd, pred);
+                            stream>>>(ref0, ref1, H, W, src, mv0, mv1, ri0,
+                                      ri1, K, L, cols, maxv, satd, pred);
     return cudaGetLastError();
 }
 
@@ -412,25 +421,30 @@ extern "C" int kvz_me_eval_info(int n, int* out) {
     }
 }
 
-// satd: int32 [3, L, K] (list 0, list 1, bi) or null; pred: int32
-// [2, L, n, n] (v_0, v_1 of pair 0; K must be 1) or null.
+// ref0, ref1: int32 stacks [R, H, W]; r0, r1: int32 [L, K] plane
+// indices, each below its stack's R (the caller checks); satd: int32
+// [3, L, K] (list 0, list 1, bi) or null; pred: int32 [2, L, n, n] (v_0,
+// v_1 of pair 0; K must be 1) or null.
 extern "C" int kvz_me_eval(const void* ref0, const void* ref1, int H, int W,
                            const void* src, const void* mv0, const void* mv1,
-                           int K, int L, int n, int cols, int maxv,
-                           void* satd, void* pred, void* stream) {
-    const int* r0 = static_cast<const int*>(ref0);
-    const int* r1 = static_cast<const int*>(ref1);
+                           const void* r0, const void* r1, int K, int L,
+                           int n, int cols, int maxv, void* satd, void* pred,
+                           void* stream) {
+    const int* f0 = static_cast<const int*>(ref0);
+    const int* f1 = static_cast<const int*>(ref1);
     const int* s = static_cast<const int*>(src);
     const int* m0 = static_cast<const int*>(mv0);
     const int* m1 = static_cast<const int*>(mv1);
+    const int* i0 = static_cast<const int*>(r0);
+    const int* i1 = static_cast<const int*>(r1);
     int* sd = static_cast<int*>(satd);
     int* p = static_cast<int*>(pred);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (n) {
-        case 8: return launch<8>(r0, r1, H, W, s, m0, m1, K, L, cols, maxv, sd, p, st);
-        case 16: return launch<16>(r0, r1, H, W, s, m0, m1, K, L, cols, maxv, sd, p, st);
-        case 32: return launch<32>(r0, r1, H, W, s, m0, m1, K, L, cols, maxv, sd, p, st);
-        case 64: return launch<64>(r0, r1, H, W, s, m0, m1, K, L, cols, maxv, sd, p, st);
+        case 8: return launch<8>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 16: return launch<16>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 32: return launch<32>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 64: return launch<64>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
         default: return cudaErrorInvalidValue;
     }
 }

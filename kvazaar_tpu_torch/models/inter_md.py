@@ -1,18 +1,21 @@
 """Quadtree (CTB 64) inter pipeline in PyTorch: generalized-B slices.
 
-Device port of the B program of kvazaar_tpu/models/inter_md.py for the
-default configuration (one reference per list, bi-prediction on,
---subme 4, inter CU depths 0-3, no SMP/AMP):
+Device port of the B program of kvazaar_tpu/models/inter_md.py with one
+or two reference pictures a list (--ref 1-4; the stacks are padded to
+n_refs_b = min(2, n_refs) by repeating their last picture), bi-prediction
+on, --subme 4, inter CU depths 0-3, no SMP/AMP:
 
-1. hierarchical ME: an exhaustive +-24 coarse sweep at 1/4 resolution
-   gives a 16x16-block motion field per list; every aligned block of every
-   size (8..64) refines the field candidates to quarter-pel with the
-   `me_refine` kernel (ops/me.py);
-2. decision: per size, the per-list winners, their exact bi-average and
-   the merge candidates (uni and bi SATDs of exact MV pairs, one
-   `me_eval` launch for all four candidates) compete; the winner gets an
-   exact RD cost against the intra leaf cost, then the bottom-up DP picks
-   the quadtree (8..64);
+1. hierarchical ME, per list and reference picture: an exhaustive +-24
+   coarse sweep at 1/4 resolution gives a 16x16-block motion field; every
+   aligned block of every size (8..64) refines the field candidates to
+   quarter-pel with the `me_refine` kernel (ops/me.py);
+2. decision: per size, each list's best reference and MV, their exact
+   bi-average, the cross-reference bi candidate (list 0 on picture 0,
+   list 1 on picture 1) and the merge candidates (uni and bi SATDs of
+   exact MV pairs, each pair on its own references, one `me_eval` launch
+   for all four candidates) compete; the winner gets an exact RD cost
+   against the intra leaf cost, then the bottom-up DP picks the quadtree
+   (8..64);
 3. reconstruction: inter leaves reconstruct in one batch, then the intra
    wavefront (models/intra_md.py) fills the intra leaves;
 4. deblocking with the two-list boundary-strength rule, checksum, SSE.
@@ -22,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.mc import CHROMA_FILTERS
-from ..ops.me import me_eval, me_refine
+from ..ops.me import me_eval, me_refine, satd_tiles
 from .intra_md import F32, I32, MdIntraPipeline, rep2, unsupported
 
 NO_REF_POC = -(1 << 30)
@@ -60,8 +63,6 @@ class MdInterPipeline(MdIntraPipeline):
                 (not bipred or not b_slices, "--no-bipred (the P program)",
                  "the P program and SMP/AMP"),
                 (smp or amp, "--smp/--amp", "the P program and SMP/AMP"),
-                (n_refs != 1, "more than one reference per list",
-                 "the GOP8 pyramid"),
                 (tuple(pu_depth_inter) != (0, 3),
                  "--pu-depth-inter other than 0-3",
                  "the remaining intra variants"),
@@ -70,6 +71,8 @@ class MdInterPipeline(MdIntraPipeline):
             if bad:
                 raise unsupported(what, entry)
         super().__init__(height, width, qp, **kw)
+        # fixed per-list stack depth (padded by repeating the last picture)
+        self.n_refs_b = min(2, max(1, n_refs))
 
     def _dpc_vec(self, qp: int) -> list[float]:
         from ..engine.bit_cost import inter_dp_costs
@@ -180,30 +183,33 @@ class MdInterPipeline(MdIntraPipeline):
         """Integer sqrt-lambda scale for the refine MV-cost prior [1]."""
         return torch.floor(torch.sqrt(self.c["lam2"]) * 64.0 + 0.5).to(I32)
 
-    def _me_sizes(self, src_y, ref_y, f16):
-        """Per-size ME of one list through the me_refine kernel: returns
-        {n: (mv_q [L,2], satd [L], pred [L,n,n], cand0 [L,2])}.
-        Candidates: own/parent 16-field MV + zero for 8/16, four spread
-        field samples + zero for 32/64."""
+    def _me_sizes(self, src_y, refs_y, fields):
+        """Per-size, per-reference ME through the me_refine kernel:
+        returns {n: [(mv_q [L,2], satd [L], pred [L,n,n], cand0 [L,2])
+        per picture of the stack refs_y]}, fields being the pictures'
+        16-fields. Candidates: own/parent 16-field MV + zero for 8/16,
+        four spread field samples + zero for 32/64."""
         lam64 = self._lam64()
-        ref = ref_y.contiguous()
-        out = {}
-        for n in (8, 16, 32, 64):
-            rows, cols = self.h // n, self.w // n
-            if n in (8, 16):
-                c0 = self._field_for(f16, n)
-                cands = torch.stack([c0, torch.zeros_like(c0)], dim=1)
-            else:
-                cands = torch.cat(
-                    [self._field_for(f16, n),
-                     torch.zeros((rows * cols, 1, 2), dtype=I32,
-                                 device=self.device)], dim=1)
-                c0 = cands[:, 0, :]
-            blocks = self._blocks(src_y, n).contiguous()
-            mv_q, satd, pred = me_refine(ref, blocks, cands.contiguous(),
-                                         lam64, n=n, cols=cols,
-                                         maxv=self.maxv)
-            out[n] = (mv_q, satd, pred, c0)
+        out = {8: [], 16: [], 32: [], 64: []}
+        for k in range(refs_y.shape[0]):
+            ref = refs_y[k].contiguous()
+            f16 = fields[k]
+            for n in (8, 16, 32, 64):
+                rows, cols = self.h // n, self.w // n
+                if n in (8, 16):
+                    c0 = self._field_for(f16, n)
+                    cands = torch.stack([c0, torch.zeros_like(c0)], dim=1)
+                else:
+                    cands = torch.cat(
+                        [self._field_for(f16, n),
+                         torch.zeros((rows * cols, 1, 2), dtype=I32,
+                                     device=self.device)], dim=1)
+                    c0 = cands[:, 0, :]
+                blocks = self._blocks(src_y, n).contiguous()
+                mv_q, satd, pred = me_refine(ref, blocks, cands.contiguous(),
+                                             lam64, n=n, cols=cols,
+                                             maxv=self.maxv)
+                out[n].append((mv_q, satd, pred, c0))
         return out
 
     def _mv_bins(self, mvd):
@@ -218,23 +224,45 @@ class MdInterPipeline(MdIntraPipeline):
                           d[self.DPC_MVD_G1_1] + eg1))
         return per.sum(dim=-1)
 
-    def _pick_ref_me(self, me):
-        """One list's ME result at one size (one reference per list on
-        this path): (mv, ref index, satd, mvd bits)."""
-        mv, satd, _, cand0 = me
-        return (mv, torch.zeros_like(satd), satd,
-                self._mv_bins(mv - cand0 * 4))
+    def _ref_cost(self, k: int, n_list: int):
+        """ref_idx signalling bits of index k in a list of n_list
+        pictures (0 when the list has one)."""
+        if n_list <= 1:
+            return torch.zeros((), dtype=F32, device=self.device)
+        if k == 0:
+            return self.dpc[self.DPC_REF0]
+        return self.dpc[self.DPC_REF_STEP] + float(max(0, k - 1))
 
-    def _eval_pairs(self, l0_y, l1_y, blocks, mv0, mv1, n: int,
+    def _pick_ref_me(self, me, lam_satd):
+        """Best reference of one list from its per-picture ME results at
+        one size (strict < in stack order, SATD + sqrt-lambda x (MVD +
+        ref_idx bits)): (mv, ref index, satd, mvd bits)."""
+        best = None
+        for k, (mv_k, satd_k, _, cand0) in enumerate(me):
+            bits_k = self._mv_bins(mv_k - cand0 * 4)
+            cost_k = satd_k.to(F32) + lam_satd * (
+                bits_k + self._ref_cost(k, len(me)))
+            cur = (cost_k, mv_k, torch.full_like(satd_k, k), satd_k, bits_k)
+            if best is None:
+                best = cur
+                continue
+            better = cost_k < best[0]
+            best = tuple(torch.where(
+                better.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                for a, b in zip(cur, best))
+        return best[1:]
+
+    def _eval_pairs(self, l0_y, l1_y, blocks, mv0, mv1, r0, r1, n: int,
                     want_satd: bool = True, want_pred: bool = False):
-        """Exact evaluation of K candidate pairs per block, mv0/mv1
-        [L, K, 2] qpel on reference 0 of each list, in one me_eval launch:
-        ((satd0, satd1, satd_bi) [L, K] or None, (v0, v1) 14-bit [L, n, n]
-        or None). With more references per list, a per-block reference
-        index would select the plane of each list here."""
-        return me_eval(l0_y[0].contiguous(), l1_y[0].contiguous(),
+        """Exact evaluation of K candidate pairs per block in one me_eval
+        launch: mv0/mv1 [L, K, 2] qpel on the pictures r0/r1 [L, K] of
+        the list stacks l0_y/l1_y [R, H, W] (one tensor when list 1 is
+        list 0). Returns ((satd0, satd1, satd_bi) [L, K] or None,
+        (v0, v1) 14-bit [L, n, n] or None)."""
+        return me_eval(l0_y.contiguous(), l1_y.contiguous(),
                        blocks.contiguous(), mv0.to(I32).contiguous(),
-                       mv1.to(I32).contiguous(), n=n, cols=self.w // n,
+                       mv1.to(I32).contiguous(), r0.to(I32).contiguous(),
+                       r1.to(I32).contiguous(), n=n, cols=self.w // n,
                        maxv=self.maxv, want_satd=want_satd,
                        want_pred=want_pred)
 
@@ -267,8 +295,8 @@ class MdInterPipeline(MdIntraPipeline):
         valids = (ci > 0, ri > 0, ones, ones)
         cands = (candL, candT, candS, cand0)
         (s0, s1, sbi), _ = self._eval_pairs(
-            l0_y, l1_y, blocks, torch.stack([c[0] for c in cands], dim=1),
-            torch.stack([c[2] for c in cands], dim=1), n)
+            l0_y, l1_y, blocks, *(torch.stack([c[i] for c in cands], dim=1)
+                                  for i in (0, 2, 1, 3)), n)
         best = None
         for c, (cand, valid) in enumerate(zip(cands, valids)):
             cdir = cand[4]
@@ -379,26 +407,56 @@ class MdInterPipeline(MdIntraPipeline):
         nb = rows * cols
         bid = self._arange(nb)
         lam_satd = torch.sqrt(lam)
-        mv0, r0, satd0, bits0 = self._pick_ref_me(me0)
-        mv1, r1, satd1, bits1 = self._pick_ref_me(me1)
-        (_, _, satd_bi), _ = self._eval_pairs(l0_y, l1_y, blocks,
-                                              mv0[:, None], mv1[:, None], n)
+        mv0, r0, satd0, bits0 = self._pick_ref_me(me0, lam_satd)
+        mv1, r1, satd1, bits1 = self._pick_ref_me(me1, lam_satd)
+        (_, _, satd_bi), _ = self._eval_pairs(
+            l0_y, l1_y, blocks, mv0[:, None], mv1[:, None], r0[:, None],
+            r1[:, None], n)
         satd_bi = satd_bi[:, 0]
+        nl0, nl1 = l0_y.shape[0], l1_y.shape[0]
+
+        def refb(r, nl):
+            return sum(torch.where(r == k, self._ref_cost(k, nl), 0.0)
+                       for k in range(nl))
+
         idc_u = self.dpc[self.DPC_IDC_UNI]
         idc_b = self.dpc[self.DPC_IDC_BI]
-        c0 = satd0.to(F32) + lam_satd * (bits0 + idc_u)
-        c1 = satd1.to(F32) + lam_satd * (bits1 + idc_u)
-        cbi = satd_bi.to(F32) + lam_satd * (bits0 + bits1 + idc_b)
+        c0 = satd0.to(F32) + lam_satd * (bits0 + refb(r0, nl0) + idc_u)
+        c1 = satd1.to(F32) + lam_satd * (bits1 + refb(r1, nl1) + idc_u)
+        cbi = satd_bi.to(F32) + lam_satd * (
+            bits0 + bits1 + refb(r0, nl0) + refb(r1, nl1) + idc_b)
         uni = torch.where(c0 <= c1, 1, 2)
         dirn = torch.where((cbi <= c0) & (cbi <= c1), 3, uni).to(I32)
-        acost = torch.minimum(torch.minimum(c0, c1), cbi) \
-            + lam_satd * self.dpc[self.DPC_AMVP]
+        acost = torch.minimum(torch.minimum(c0, c1), cbi)
+        if len(me0) >= 2 and len(me1) >= 2:
+            # cross-reference bi candidate: list 0's winner on picture 0
+            # and list 1's on picture 1 (the lists' own picks coincide
+            # when both hold the same pictures), priced on the average of
+            # me_refine's rounded predictions
+            mvA, _, predA, candA = me0[0]
+            mvB, _, predB, candB = me1[1]
+            satd_x = satd_tiles(blocks - ((predA + predB + 1) >> 1))
+            cx = satd_x.to(F32) + lam_satd * (
+                self._mv_bins(mvA - candA * 4)
+                + self._mv_bins(mvB - candB * 4)
+                + self._ref_cost(0, nl0) + self._ref_cost(1, nl1) + idc_b)
+            cur = torch.where(dirn == 3, cbi,
+                              torch.where(dirn == 1, c0, c1))
+            take = cx < cur
+            dirn = torch.where(take, 3, dirn)
+            mv0 = torch.where(take[:, None], mvA, mv0)
+            r0 = torch.where(take, 0, r0)
+            mv1 = torch.where(take[:, None], mvB, mv1)
+            r1 = torch.where(take, 1, r1)
+            acost = torch.minimum(acost, cx)
+        acost = acost + lam_satd * self.dpc[self.DPC_AMVP]
         (mv0, r0, mv1, r1, dirn, use_merge,
          merge_delta) = self._merge_align_b(
             l0_y, l1_y, blocks, rows, cols, n, mv0, r0, mv1, r1, dirn,
             acost, lam_satd)
         _, (v0, v1) = self._eval_pairs(l0_y, l1_y, blocks, mv0[:, None],
-                                       mv1[:, None], n, want_satd=False,
+                                       mv1[:, None], r0[:, None],
+                                       r1[:, None], n, want_satd=False,
                                        want_pred=True)
         pred_bi = self._bi_avg(v0, v1)
         sel = dirn[:, None, None]
@@ -432,7 +490,10 @@ class MdInterPipeline(MdIntraPipeline):
             ccost = ccost + cdist + lam * crate
         mv_bits = torch.where(dirn == 3, bits0 + bits1,
                               torch.where(dirn == 1, bits0, bits1))
-        ref_bits = torch.where(dirn == 3, idc_b, idc_u)
+        ref_bits = torch.where(
+            dirn == 3, refb(r0, nl0) + refb(r1, nl1) + idc_b,
+            torch.where(dirn == 1, refb(r0, nl0) + idc_u,
+                        refb(r1, nl1) + idc_u))
         d = self.dpc
         amvp_bits = (d[self.DPC_AMVP] + mv_bits + ref_bits
                      + torch.where(cbf_any, d[self.DPC_RQT1],
@@ -460,10 +521,10 @@ class MdInterPipeline(MdIntraPipeline):
         then the bottom-up split DP. Returns (size_map8, mode_map8,
         inter8, dir8, mv8, ref8, mv8b, ref8b, leaf_preds)."""
         lam = self.lam
-        me_l0 = self._me_sizes(src_y, l0[0][0],
-                               self._coarse_field(src_y, l0[0][0]))
-        me_l1 = self._me_sizes(src_y, l1[0][0],
-                               self._coarse_field(src_y, l1[0][0]))
+        me_l0, me_l1 = (
+            self._me_sizes(src_y, lst[0],
+                           [self._coarse_field(src_y, r) for r in lst[0]])
+            for lst in (l0, l1))
         leaf_preds = {}
         per_size = {}
         for n in (8, 16, 32):
@@ -695,15 +756,21 @@ class MdInterPipeline(MdIntraPipeline):
     def submit_inter_b(self, src_y, src_cb, src_cr, l0, l1, l0_pocs,
                        l1_pocs, qp: int | None = None) -> dict:
         """B frame: l0/l1 = ([y..], [cb..], [cr..]) per-list reference
-        stacks (device tensors or numpy), truncated to one entry."""
+        stacks (device tensors or numpy), newest first, truncated or
+        padded to n_refs_b by repeating the last entry (their POCs
+        alike)."""
         self.set_consts(self._consts_for(qp))
+        K = self.n_refs_b
+
+        def pad(vals):
+            vs = list(vals)[:K]
+            return vs + vs[-1:] * (K - len(vs))
 
         def stack(planes):
-            return torch.stack([self._to_dev(p) for p in planes[:1]])
+            return torch.stack([self._to_dev(p) for p in pad(planes)])
 
         def pocs(vals):
-            return torch.as_tensor(list(vals)[:1], dtype=I32,
-                                   device=self.device)
+            return torch.as_tensor(pad(vals), dtype=I32, device=self.device)
         s0 = tuple(stack(p) for p in l0)
         s1 = s0 if l1 is l0 else tuple(stack(p) for p in l1)
         return self._inter_full_b_impl(

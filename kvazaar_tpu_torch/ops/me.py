@@ -2,13 +2,15 @@
 
 Each function has a plain PyTorch version (`*_plain`, the arithmetic of
 the reference's XLA twins: `_me_xla_one`; `_eval_exact` for each list
-of a candidate pair, then `_bi_avg` and `_satd_tiles` for the pair) and
+of a candidate pair, each on its own reference picture, then `_bi_avg`
+and `_satd_tiles` for the pair) and
 a wrapper that launches a hand-written CUDA kernel (csrc/me_refine.cu,
 csrc/me_eval.cu) on CUDA tensors. A CPU tensor takes the plain version;
 a CUDA tensor always takes the kernel.
 
-Both read the UNPADDED [H, W] reference planes and clamp every row and
-column index into them, which equals edge padding for any motion vector.
+Both read UNPADDED [H, W] reference planes (me_eval the plane a pair's
+index names in a stack [R, H, W]) and clamp every row and column index
+into them, which equals edge padding for any motion vector.
 
 The kernels are built on first use with nvcc into the package's _build/
 directory and bound with ctypes (plain C launch functions returning
@@ -73,12 +75,17 @@ def _block_origins(L: int, n: int, cols: int, device) -> tuple:
 
 
 def _window(ref: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-            hh: int, ww: int) -> torch.Tensor:
-    """[L, hh, ww] clamped window of ref starting at (ys, xs) [L]."""
-    H, W = ref.shape
+            hh: int, ww: int, sel: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """[L, hh, ww] clamped window of ref starting at (ys, xs) [L]; ref is
+    one plane [H, W], or a stack [R, H, W] with the plane of each block
+    sel [L]."""
+    H, W = ref.shape[-2:]
     iy = (ys[:, None] + torch.arange(hh, device=ref.device)).clamp(0, H - 1)
     ix = (xs[:, None] + torch.arange(ww, device=ref.device)).clamp(0, W - 1)
-    return ref[iy[:, :, None], ix[:, None, :]]
+    if sel is None:
+        return ref[iy[:, :, None], ix[:, None, :]]
+    return ref[sel.long()[:, None, None], iy[:, :, None], ix[:, None, :]]
 
 
 def _lf(device) -> torch.Tensor:
@@ -87,12 +94,14 @@ def _lf(device) -> torch.Tensor:
 
 def mc_luma_plain(ref: torch.Tensor, mv: torch.Tensor, y0: torch.Tensor,
                   x0: torch.Tensor, n: int, hi: bool = False,
-                  maxv: int = 255) -> torch.Tensor:
+                  maxv: int = 255, sel: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """Exact quarter-pel HEVC luma MC of [L, n, n] blocks at origins
-    (y0, x0) with per-block qpel mv [L, 2]; hi=True returns the 14-bit
+    (y0, x0) with per-block qpel mv [L, 2] on ref [H, W] (or on plane
+    sel [L] of a stack [R, H, W]); hi=True returns the 14-bit
     intermediate for exact bi-prediction."""
     win = _window(ref, y0 + (mv[:, 1] >> 2) - 3, x0 + (mv[:, 0] >> 2) - 3,
-                  n + 7, n + 7)
+                  n + 7, n + 7, sel)
     f = _lf(ref.device)
     cx = f[mv[:, 0] & 3]
     cy = f[mv[:, 1] & 3]
@@ -175,33 +184,35 @@ def me_refine_plain(ref, src_blocks, cands, lam64, n: int, cols: int,
 
 
 def eval_one_plain(ref, src_blocks, mvs, n: int, cols: int, hi: bool,
-                   maxv: int = 255):
+                   maxv: int = 255, sel=None):
     """SATD of one exact qpel MV per block of one list plus its
-    prediction (the 14-bit intermediate when hi). Returns (satd [L],
+    prediction (the 14-bit intermediate when hi), on ref [H, W] or on
+    plane sel [L] of a stack [R, H, W]. Returns (satd [L],
     pred [L, n, n])."""
     L = src_blocks.shape[0]
     y0, x0 = _block_origins(L, n, cols, ref.device)
-    pred = mc_luma_plain(ref, mvs, y0, x0, n, hi=hi, maxv=maxv)
+    pred = mc_luma_plain(ref, mvs, y0, x0, n, hi=hi, maxv=maxv, sel=sel)
     pr = ((pred + 32) >> 6).clamp(0, maxv) if hi else pred
     return satd_tiles(src_blocks - pr), pred
 
 
-def me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, *, n: int, cols: int,
-                  maxv: int = 255, want_satd: bool = True,
+def me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
+                  cols: int, maxv: int = 255, want_satd: bool = True,
                   want_pred: bool = False):
-    """Exact evaluation of K candidate pairs (list 0 MV, list 1 MV) per
-    block: mv0, mv1 int32 [L, K, 2] qpel (x, y) on ref0, ref1. Returns
-    (satd, pred): satd = (satd0, satd1, satd_bi), each int32 [L, K], with
-    want_satd, else None, satd_l being the SATD of the uni-prediction of
-    list l and satd_bi that of the pair's exact bi-average; pred = (v0,
-    v1), the 14-bit intermediates [L, n, n] of pair 0, with want_pred,
-    else None."""
+    """Exact evaluation of K candidate pairs (list 0 MV and reference,
+    list 1 MV and reference) per block: mv0, mv1 int32 [L, K, 2] qpel
+    (x, y) on the planes r0, r1 int32 [L, K] of the stacks ref0, ref1
+    [R, H, W]. Returns (satd, pred): satd = (satd0, satd1, satd_bi), each
+    int32 [L, K], with want_satd, else None, satd_l being the SATD of the
+    uni-prediction of list l and satd_bi that of the pair's exact
+    bi-average; pred = (v0, v1), the 14-bit intermediates [L, n, n] of
+    pair 0, with want_pred, else None."""
     sat, pred = [], None
     for k in range(mv0.shape[1]):
         s0, v0 = eval_one_plain(ref0, src_blocks, mv0[:, k], n, cols, True,
-                                maxv)
+                                maxv, r0[:, k])
         s1, v1 = eval_one_plain(ref1, src_blocks, mv1[:, k], n, cols, True,
-                                maxv)
+                                maxv, r1[:, k])
         if k == 0 and want_pred:
             pred = (v0, v1)
         if want_satd:
@@ -285,10 +296,10 @@ def bind(name: str, path: str):
         fn.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, ci, ci,
                        vp, vp, vp, vp]
     else:
-        # ref0, ref1, H, W, src, mv0, mv1, K, L, n, cols, maxv, satd,
-        # pred, stream
-        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                       vp, vp, vp]
+        # ref0, ref1, H, W, src, mv0, mv1, r0, r1, K, L, n, cols, maxv,
+        # satd, pred, stream
+        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                       ci, vp, vp, vp]
     fn.restype = ci
     info = getattr(lib, f"kvz_{name}_info")
     info.argtypes = [ci, ctypes.POINTER(ci)]
@@ -371,19 +382,28 @@ def kernel_occupancy(name: str, n: int) -> dict:
                      "local"), out))
 
 
-def me_eval(ref0, ref1, src_blocks, mv0, mv1, *, n: int, cols: int,
-            maxv: int = 255, want_satd: bool = True,
+def me_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
+            cols: int, maxv: int = 255, want_satd: bool = True,
             want_pred: bool = False):
-    """See me_eval_plain. ref0, ref1 int32 [H, W] (may be one tensor);
-    src_blocks int32 [L, n, n] (raster order, `cols` blocks per row);
-    mv0, mv1 int32 [L, K, 2] exact qpel MVs (x, y). want_pred takes
-    K = 1. Held to the kernel's limits on every device."""
-    L = _check_common(ref0, src_blocks, n, cols)
+    """See me_eval_plain. ref0, ref1 int32 reference stacks [R0, H, W],
+    [R1, H, W] (may be one tensor); src_blocks int32 [L, n, n] (raster
+    order, `cols` blocks per row); mv0, mv1 int32 [L, K, 2] exact qpel
+    MVs (x, y); r0, r1 int32 [L, K], each pair's plane of each stack.
+    want_pred takes K = 1. Held to the kernel's limits on every device,
+    the reference indices included (reading their range waits for the
+    device)."""
+    if ref0.dim() != 3 or ref0.shape[0] < 1:
+        raise ValueError("ref0 must be a reference stack [R, H, W]")
+    L = _check_common(ref0[0], src_blocks, n, cols)
     dev = ref0.device
-    _check(ref1, "ref1", tuple(ref0.shape), dev)
+    _check(ref0, "ref0", tuple(ref0.shape), dev)
+    R1 = ref1.shape[0] if ref1.dim() == 3 else -1
+    _check(ref1, "ref1", (R1,) + tuple(ref0.shape[1:]), dev)
     K = mv0.shape[1] if mv0.dim() == 3 else -1
     _check(mv0, "mv0", (L, K, 2), dev)
     _check(mv1, "mv1", (L, K, 2), dev)
+    _check(r0, "r0", (L, K), dev)
+    _check(r1, "r1", (L, K), dev)
     if K < 1 or not (want_satd or want_pred):
         raise ValueError("me_eval needs K >= 1 pairs and an output")
     if want_pred and K != 1:
@@ -392,20 +412,40 @@ def me_eval(ref0, ref1, src_blocks, mv0, mv1, *, n: int, cols: int,
     if not 0 <= maxv <= 1023:
         # the kernel's float32 arithmetic is exact up to 10 bits
         raise ValueError(f"me_eval takes maxv up to 1023, got {maxv}")
+    lo0, hi0, lo1, hi1 = torch.stack([r0.min(), r0.max(), r1.min(),
+                                      r1.max()]).tolist()
+    if lo0 < 0 or lo1 < 0 or hi0 >= ref0.shape[0] or hi1 >= R1:
+        # the kernel reads plane r of its stack unchecked
+        raise ValueError(f"me_eval reference indices out of range: r0 in "
+                         f"[{lo0}, {hi0}] of {ref0.shape[0]} planes, r1 in "
+                         f"[{lo1}, {hi1}] of {R1}")
     if dev.type == "cpu":
-        return me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, n=n,
+        return me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, r0, r1, n=n,
                              cols=cols, maxv=maxv, want_satd=want_satd,
                              want_pred=want_pred)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    return launch_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, n=n,
+                       cols=cols, maxv=maxv, want_satd=want_satd,
+                       want_pred=want_pred)
+
+
+def launch_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
+                cols: int, maxv: int, want_satd: bool, want_pred: bool):
+    """Launch the me_eval kernel on arguments that me_eval has checked
+    (CUDA tensors only); no host synchronisation. Kernel timings call it
+    directly, so that the index check's wait stays out of them."""
+    dev = ref0.device
+    L, K = mv0.shape[:2]
     fn = _lib("me_eval").kvz_me_eval
     satd = (torch.empty((3, L, K), dtype=torch.int32, device=dev)
             if want_satd else None)
     pred = (torch.empty((2, L, n, n), dtype=torch.int32, device=dev)
             if want_pred else None)
-    H, W = ref0.shape
+    H, W = ref0.shape[1:]
     err = fn(ref0.data_ptr(), ref1.data_ptr(), H, W, src_blocks.data_ptr(),
-             mv0.data_ptr(), mv1.data_ptr(), K, L, n, cols, maxv,
+             mv0.data_ptr(), mv1.data_ptr(), r0.data_ptr(), r1.data_ptr(),
+             K, L, n, cols, maxv,
              satd.data_ptr() if want_satd else None,
              pred.data_ptr() if want_pred else None,
              torch.cuda.current_stream(dev).cuda_stream)

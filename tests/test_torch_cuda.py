@@ -10,9 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (TOOL_LDB, compare_devices,  # noqa: E402
-                        kernel_errors, kernel_inputs, mixed_frames,
-                        tie_inputs, tie_planes)
+from chip_smoke import (LOWDELAY, TOOL_LDB,  # noqa: E402
+                        compare_devices, kernel_errors, kernel_inputs,
+                        mixed_frames, tie_inputs, tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -31,8 +31,9 @@ def test_kernels_match_plain(n):
     MVs reaching far outside the picture (index clamping), on random
     content and on the tie-heavy planes (flat, stripes; candidates
     coinciding in pairs), where the strict-< scan order decides; me_eval
-    with K = 1 and 4 pairs, every output flag, one plane for both lists
-    and two planes."""
+    with K = 1 and 4 pairs, every output flag, on a stack of one picture
+    for both lists and on stacks of two with random (and, on the
+    tie-heavy planes, coinciding) per-pair reference indices."""
     dev = _need_cuda()
     rng = np.random.RandomState(n)
     ref = torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.int32))
@@ -47,9 +48,9 @@ def test_kernels_match_plain(n):
     lam = torch.tensor([153], dtype=torch.int32, device=dev)
     before = (me.me_refine.launches, me.me_eval.launches)
     err = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1)
-    # me_eval: 4 call patterns x 2 plane choices
+    # me_eval: 4 call patterns x 3 pairs of stacks
     assert (me.me_refine.launches, me.me_eval.launches) == \
-        (before[0] + 1, before[1] + 8)
+        (before[0] + 1, before[1] + 12)
     assert err == {"me_refine": 0, "me_eval": 0}
     for name, plane, lam64 in tie_planes(H, W):
         t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(plane, n, 5, gen,
@@ -96,3 +97,20 @@ def test_cuda_tool_row_equals_cpu():
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 3 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+def test_cuda_lowdelay_equals_cpu():
+    """Bench scenario 2's GOP (lp-g4d3t1, two references a list) gives
+    the CPU path's stream and maps on the GPU over IDR + 5 B, with 16
+    me_refine launches (4 sizes x 2 lists x 2 pictures) and 12 me_eval
+    launches a B frame."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches)
+    stream, rows = compare_devices(mixed_frames(6, W, H), W, H, **LOWDELAY)
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1]) == (5 * 16, 5 * 12)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 6 and all(p.hash_ok for p in pics)

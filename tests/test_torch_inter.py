@@ -35,8 +35,8 @@ def _port():
 
 def _port_stages(pipe, src, ref) -> dict:
     out = {}
-    me0 = pipe._me_sizes(src[0], ref[0][0],
-                         pipe._coarse_field(src[0], ref[0][0]))
+    me0 = pipe._me_sizes(src[0], ref[0],
+                         [pipe._coarse_field(src[0], ref[0][0])])
     for k, v in zip(("mv0", "r0", "mv1", "r1", "dir", "cost", "pred_y",
                      "pred_cb", "pred_cr"),
                     pipe._inter_leaf_b(*src, ref, ref, 16, me0[16],

@@ -110,8 +110,9 @@ def _jax_pairs(n, K):
 def test_me_eval_pairs_match_jax(n, K):
     """me_eval_plain (and the wrapper on the CPU) against the JAX
     package, tolerance 0: K pairs a block with MVs reaching 20 px outside
-    the picture, on one plane for both lists and on two planes, with
-    satd only, predictions only (K = 1) and both."""
+    the picture, on one plane for both lists and on two planes (stacks of
+    one, reference indices 0), with satd only, predictions only (K = 1)
+    and both."""
     rng, ref, src = _inputs(50 + n + K)
     ref1 = rng.randint(0, 256, (H, W)).astype(np.int32)
     cols = W // n
@@ -125,15 +126,17 @@ def test_me_eval_pairs_match_jax(n, K):
         (js, (jv0, jv1)) = jf(consts, jnp.asarray(r0), jnp.asarray(r1),
                               jnp.asarray(blocks), jnp.asarray(m0),
                               jnp.asarray(m1))
-        t0 = torch.from_numpy(r0)
-        t1 = t0 if r1 is r0 else torch.from_numpy(r1)
+        t0 = torch.from_numpy(r0)[None]
+        t1 = t0 if r1 is r0 else torch.from_numpy(r1)[None]
+        zero = torch.zeros((L, K), dtype=torch.int32)
         flags = [(True, False)] + ([(False, True), (True, True)]
                                    if K == 1 else [])
         for want_satd, want_pred in flags:
             for f in (me.me_eval, me.me_eval_plain):
                 sat, pred = f(t0, t1, t_blocks, torch.from_numpy(m0),
-                              torch.from_numpy(m1), n=n, cols=cols,
-                              want_satd=want_satd, want_pred=want_pred)
+                              torch.from_numpy(m1), zero, zero, n=n,
+                              cols=cols, want_satd=want_satd,
+                              want_pred=want_pred)
                 assert (sat is None) != want_satd
                 assert (pred is None) != want_pred
                 for got, want in zip(sat or (), js):
@@ -168,46 +171,62 @@ def test_wrappers_take_plain_version_on_cpu():
     b = me.me_refine_plain(t_ref, t_blocks, cands, lam, n, cols)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     kw = dict(n=n, cols=cols, want_pred=True)
-    a = me.me_eval(t_ref, t_ref, t_blocks, mv0, mv1, **kw)
-    b = me.me_eval_plain(t_ref, t_ref, t_blocks, mv0, mv1, **kw)
+    st = torch.stack([t_ref, t_ref.flip(1).contiguous()])
+    ri = torch.from_numpy(rng.randint(0, 2, (L, 1)).astype(np.int32))
+    a = me.me_eval(st, st, t_blocks, mv0, mv1, ri, 1 - ri, **kw)
+    b = me.me_eval_plain(st, st, t_blocks, mv0, mv1, ri, 1 - ri, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
     # launch counters count kernel launches only
     assert (me.me_refine.launches, me.me_eval.launches) == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "size",
-                                 "ref1", "pred_k", "maxv", "no_output"])
+                                 "ref1", "pred_k", "maxv", "no_output",
+                                 "plane", "r_shape", "r_low", "r_high"])
 def test_wrappers_reject_bad_inputs(bad):
     """me_eval refuses what its kernel does not take, on every device:
     wrong types, shapes or layouts, predictions of more than one pair,
-    samples beyond 10 bits (the kernel's float32 range) and a call that
-    asks for nothing."""
-    ref = torch.zeros((H, W), dtype=torch.int32)
-    ref1 = ref
+    samples beyond 10 bits (the kernel's float32 range), a call that
+    asks for nothing, a single plane where a stack is due, and reference
+    indices of the wrong shape or outside their stack."""
+    ref = torch.zeros((2, H, W), dtype=torch.int32)
+    ref1 = ref[:1]
     blocks = torch.zeros((32, 16, 16), dtype=torch.int32)
     mv0 = torch.zeros((32, 1, 2), dtype=torch.int32)
     mv1 = mv0
+    r0 = torch.ones((32, 1), dtype=torch.int32)
+    r1 = torch.zeros((32, 1), dtype=torch.int32)
     kw = dict(n=16, cols=8)
-    me.me_eval(ref, ref1, blocks, mv0, mv1, maxv=1023, want_pred=True, **kw)
+    me.me_eval(ref, ref1, blocks, mv0, mv1, r0, r1, maxv=1023,
+               want_pred=True, **kw)
     if bad == "dtype":
         ref = ref.to(torch.int64)
     elif bad == "shape":
         mv1 = torch.zeros((31, 1, 2), dtype=torch.int32)
     elif bad == "contiguous":
-        ref = torch.zeros((W, H), dtype=torch.int32).t()
+        ref = torch.zeros((2, W, H), dtype=torch.int32).transpose(1, 2)
     elif bad == "size":
         kw["n"] = 12
     elif bad == "ref1":
-        ref1 = torch.zeros((H, W + 8), dtype=torch.int32)
+        ref1 = torch.zeros((1, H, W + 8), dtype=torch.int32)
     elif bad == "pred_k":
         mv0 = mv1 = torch.zeros((32, 2, 2), dtype=torch.int32)
+        r0 = r1 = torch.zeros((32, 2), dtype=torch.int32)
         kw["want_pred"] = True
     elif bad == "maxv":
         kw["maxv"] = 1024
-    else:
+    elif bad == "no_output":
         kw["want_satd"] = False
+    elif bad == "plane":
+        ref = ref[0]
+    elif bad == "r_shape":
+        r0 = torch.zeros((32,), dtype=torch.int32)
+    elif bad == "r_low":
+        r0 = r0 - 2
+    else:
+        r1 = r1 + 1
     with pytest.raises((TypeError, ValueError)):
-        me.me_eval(ref, ref1, blocks, mv0, mv1, **kw)
+        me.me_eval(ref, ref1, blocks, mv0, mv1, r0, r1, **kw)
 
 
 def test_me_refine_rejects_more_candidates_than_keys_hold():

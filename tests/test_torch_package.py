@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it imports neither JAX nor anything of
 kvazaar_tpu (nor do chip_smoke.py and the tools that run on the GPU
-machine: me_bench.py, me_eval_ab.py, torch_profile.py), it targets CUDA
+machine: me_bench.py, me_eval_ab.py, torch_profile.py,
+torch_lowdelay_refs.py), it targets CUDA
 unless asked for the CPU, and configurations outside the ported slice
 raise."""
 import ast
@@ -20,7 +21,8 @@ SOURCES = sorted(
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     + ["chip_smoke.py"]
     + [os.path.join("tools", f)
-       for f in ("me_bench.py", "me_eval_ab.py", "torch_profile.py")])
+       for f in ("me_bench.py", "me_eval_ab.py", "torch_profile.py",
+                 "torch_lowdelay_refs.py")])
 FORBIDDEN = ("jax", "jaxlib", "kvazaar_tpu")
 
 
@@ -79,7 +81,9 @@ def test_encoder_targets_cuda_by_default():
 UNSUPPORTED = {
     "no_bipred": dict(bipred=False),
     "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
-    "gop8": dict(gop_len=8), "ref2": dict(ref_frames=2),
+    "gop8": dict(gop_len=8), "gop4_pyramid": dict(gop_len=4),
+    "open_gop": dict(gop_len=8, open_gop=True),
+    "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False),
     "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
     "lossless": dict(lossless=True), "wpp": dict(wpp=True),
     "scaling": dict(scaling_list="default"), "vaq": dict(vaq=2),
@@ -99,14 +103,18 @@ def test_unsupported_options_raise(name):
 
 
 TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
-         "signhide": dict(signhide_enable=True)}
+         "signhide": dict(signhide_enable=True),
+         "ref2": dict(ref_frames=2),
+         "lp_gop": dict(gop_len=4, gop_lowdelay=True, gop_lp=(3, 1),
+                        ref_frames=2)}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_options_encode_and_decode(name):
-    """Each option of the tool row builds on cuda unless the CPU is asked
-    for, and encodes IDR + B at 128x64 on the CPU (both pipelines), hash-
-    exact in the port's decoder."""
+    """Each option of the tool row, two references a list and the
+    low-delay GOP build on cuda unless the CPU is asked for, and encode
+    IDR + B at 128x64 on the CPU (both pipelines), hash-exact in the
+    port's decoder."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder

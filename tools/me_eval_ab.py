@@ -10,7 +10,8 @@ path (chip_smoke.eval_errors on a synthetic frame and on the tie-heavy
 planes). Then, in R rounds (default 2) that take the sources in turn,
 times each block size's three launches of one B frame
 (chip_smoke.EVAL_CALLS: the winners' pair, the merge candidates, the
-final prediction) one call at a time (chip_smoke.time_calls: device
+final prediction) with two reference pictures a list, list 1 being list
+0, one call at a time through me.launch_eval (chip_smoke.time_calls: device
 ms from CUDA events, beside the wall ms of the same calls issued from
 the host). Prints each source's sha256, ptxas's registers and spills,
 its blocks per SM, the ms of every call and round, and per source the
@@ -32,7 +33,8 @@ def main(argv) -> None:
     import numpy as np
     import torch
     from chip_smoke import (EVAL_CALLS, H, PIPE_LANES, W, bound_ms,
-                            eval_errors, eval_work, fail, kernel_inputs,
+                            eval_errors, eval_pictures, eval_work, fail,
+                            kernel_inputs,
                             open_device, synth_frames, tie_inputs,
                             tie_planes, time_calls)
     rounds = 2
@@ -87,10 +89,19 @@ def main(argv) -> None:
             if err:
                 fail(f"{digest} differs from me_eval_plain at n={n}")
 
+    # the timed pattern: a B frame with two reference pictures a list,
+    # list 1 being list 0, each pair on its own pictures
+    stack = torch.stack([ref, ref1])
+
+    def args_of(blocks, mvs, k):
+        return (stack, stack, blocks) + tuple(a[:, :k].contiguous()
+                                              for a in mvs)
     bound = {}
     for n, (blocks, _, mvs, cols) in inputs.items():
-        bound[n] = bound_ms([eval_work(n, blocks.shape[0], k, hp, wp, 1,
-                                       s, p) for k, s, p in EVAL_CALLS],
+        bound[n] = bound_ms([eval_work(n, blocks.shape[0], k, hp, wp,
+                                       eval_pictures(args_of(blocks, mvs,
+                                                             k)), s, p)
+                             for k, s, p in EVAL_CALLS],
                             rates["me_eval"])[0]
     totals = {d: [] for d in libs}
     for r in range(rounds):
@@ -100,11 +111,10 @@ def main(argv) -> None:
             for n, (blocks, _, mvs, cols) in inputs.items():
                 parts = []
                 for k, want_satd, want_pred in EVAL_CALLS:
-                    m0 = mvs[0][:, :k].contiguous()
-                    m1 = mvs[1][:, :k].contiguous()
-                    parts.append(time_calls(lambda: me.me_eval(
-                        ref, ref, blocks, m0, m1, n=n, cols=cols,
-                        want_satd=want_satd, want_pred=want_pred), 20))
+                    a = args_of(blocks, mvs, k)
+                    parts.append(time_calls(lambda: me.launch_eval(
+                        *a, n=n, cols=cols, maxv=255, want_satd=want_satd,
+                        want_pred=want_pred), 20))
                 size = sum(d for d, _ in parts)
                 tot += size
                 print(f"round {r} {digest} n={n}: " + ", ".join(

@@ -10,13 +10,24 @@ tests/data/torch_golden_slice.npz:
   wavefront (`recon_*`) and the inter leaf / partition / batch recon
   (`leafb_*`, `part_*`, `batch_*`), all on inputs made from fixed seeds;
 
-and in tests/data/torch_golden_tools.npz, per TOOL_CONFIGS entry, the
+in tests/data/torch_golden_tools.npz, per TOOL_CONFIGS entry, the
 stream (`<name>_stream`) and every frame's maps, SAO parameters included
 (`<name>_f{i}_<key>`), of slice_frames at 128x64 with SAO, RDOQ and
-sign-data hiding.
+sign-data hiding;
 
-Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py [slice|tools]
-(both files when no argument is given).
+and in tests/data/torch_golden_lowdelay.npz, bench.py's scenario 2 (the
+low-delay GOP lp-g4d3t1 with two references a list):
+
+- per LOWDELAY_CONFIGS entry the stream and every frame's maps of 6
+  slice_frames at 128x64 (IDR + 5 B), as above;
+- the frame plan (`plan_ref<R>`: per frame POC, QP, l0, l1, is_ref and
+  the retained DPB, as JSON) of 9 slice_frames with --ref 1, 2, 4;
+- the B inter leaf at n = 16 and 64 with two-picture reference stacks
+  (`ldleaf<n>_*`) on cross_inputs, where the cross-reference
+  bi-prediction candidate wins.
+
+Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
+[slice|tools|lowdelay] (every file when no argument is given).
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ sys.path.insert(0, ROOT)
 W, H, N_FRAMES = 128, 64, 3
 OUT = os.path.join(ROOT, "tests", "data", "torch_golden_slice.npz")
 OUT_TOOLS = os.path.join(ROOT, "tests", "data", "torch_golden_tools.npz")
+OUT_LOWDELAY = os.path.join(ROOT, "tests", "data",
+                            "torch_golden_lowdelay.npz")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
@@ -46,6 +59,21 @@ TOOL_CONFIGS = {
     "ldb": (dict(qp=27, sao_type="full", rdoq_enable=True,
                  signhide_enable=True), 3),
 }
+
+# bench.py's scenario 2 (bench.py:232-233): the low-delay GOP lp-g4d3t1
+# with two references a list, at the default tools ("lp") and with the
+# tool row of scenario 1 at QP 27 ("lp_tools"; bench.py:41-42, 123)
+LOWDELAY = dict(intra_period=0, gop_len=4, gop_lowdelay=True,
+                gop_lp=(3, 1), ref_frames=2)
+LOWDELAY_CONFIGS = {
+    "lp": (LOWDELAY, 6),
+    "lp_tools": (dict(LOWDELAY, qp=27, deblock_enable=True,
+                      sao_type="full", rdoq_enable=True,
+                      signhide_enable=False), 6),
+}
+PLAN_REFS = (1, 2, 4)
+PLAN_FRAMES = 9
+LEAF_QP = 22
 
 
 def slice_frames(n: int = N_FRAMES) -> list:
@@ -132,6 +160,74 @@ def jax_stages() -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def jax_plan(ref_frames: int) -> list[dict]:
+    """The JAX package's frame plan of PLAN_FRAMES slice_frames of
+    scenario 2's GOP with --ref ref_frames: per frame the POC, QP, l0,
+    l1, is_ref and the POCs the DPB keeps after it."""
+    from kvazaar_tpu.api import Encoder
+    from kvazaar_tpu.cfg import Config
+    enc = Encoder(Config(width=W, height=H,
+                         **dict(LOWDELAY, ref_frames=ref_frames)))
+    plan = []
+    for f in slice_frames(PLAN_FRAMES):
+        meta = enc.submit_frame(*f)
+        enc.finalize_frame(meta)
+        plan.append(plan_entry(meta))
+    return plan
+
+
+def plan_entry(meta: dict) -> dict:
+    """The frame-plan fields of an encoder's submit_frame meta."""
+    return {"poc": int(meta["poc"]), "qp": int(meta["qp"]),
+            "l0": [int(p) for p in meta["l0"]],
+            "l1": [int(p) for p in meta["l1"]],
+            "is_ref": bool(meta.get("is_ref", True)),
+            "dpb_pocs": [int(p) for p in meta["dpb_pocs"]]}
+
+
+def cross_inputs() -> dict:
+    """Inputs of the two-reference leaf goldens at 128x64: two reference
+    pictures that share slice frame 0's content under independent +-12
+    noise, and a source of that content with +-2 noise, so averaging
+    the two pictures (the cross-reference bi candidate: list 0 on picture
+    0, list 1 on picture 1) predicts it better than either alone."""
+    rng = np.random.RandomState(21)
+    base = [p.astype(np.int32) for p in slice_frames(1)[0]]
+
+    def noisy(amp):
+        return tuple(np.clip(p + rng.randint(-amp, amp + 1, p.shape), 0,
+                             255).astype(np.uint8) for p in base)
+    return {"src": noisy(2), "refs": (noisy(12), noisy(12))}
+
+
+def jax_lowdelay_leaves() -> dict:
+    """The JAX B inter leaf at n = 16 and 64 with both lists the
+    two-picture stack of cross_inputs (QP LEAF_QP)."""
+    import jax
+    import jax.numpy as jnp
+    from kvazaar_tpu.models.inter_md import MdInterPipeline
+    inp = cross_inputs()
+    pipe = MdInterPipeline(H, W, LEAF_QP, n_refs=2, b_slices=True,
+                           deblock=True)
+    src = tuple(jnp.asarray(p, jnp.int32) for p in inp["src"])
+    stack = tuple(jnp.stack([jnp.asarray(r[c], jnp.int32)
+                             for r in inp["refs"]]) for c in range(3))
+    lam = pipe.lam2[0]
+    out = {}
+    for n, t, tc in ((16, pipe.t16, pipe.t8), (64, pipe.t32, pipe.t16)):
+        def leaf(s_y, s_cb, s_cr, l0, n=n, t=t, tc=tc):
+            fields = [pipe._coarse_field(s_y, l0[0][k]) for k in range(2)]
+            me = pipe._me_kernel_sizes(s_y, l0[0], fields, None)
+            return pipe._inter_leaf_b(s_y, s_cb, s_cr, l0, l0, fields,
+                                      fields, n, t, tc, lam, me0=me[n],
+                                      me1=me[n])
+        res = jax.jit(pipe._with_consts(leaf))(pipe.consts, *src, stack)
+        for k, v in zip(("mv0", "r0", "mv1", "r1", "dir", "cost",
+                         "pred_y", "pred_cb", "pred_cr"), res):
+            out[f"ldleaf{n}_{k}"] = np.asarray(v)
+    return out
+
+
 def _stream_arrays(prefix: str, stream: bytes, decs: list) -> dict:
     data = {prefix + "stream": np.frombuffer(stream, np.uint8)}
     for i, d in enumerate(decs):
@@ -160,7 +256,20 @@ def write_tools_golden(path: str = OUT_TOOLS) -> None:
     _save(path, data)
 
 
+def write_lowdelay_golden(path: str = OUT_LOWDELAY) -> None:
+    import json
+    data = {}
+    for name, (cfg, n) in LOWDELAY_CONFIGS.items():
+        data.update(_stream_arrays(name + "_",
+                                   *jax_stream(slice_frames(n), **cfg)))
+    for r in PLAN_REFS:
+        data[f"plan_ref{r}"] = np.array(json.dumps(jax_plan(r)))
+    data.update(jax_lowdelay_leaves())
+    _save(path, data)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["slice", "tools"]
+    which = sys.argv[1:] or ["slice", "tools", "lowdelay"]
     for w in which:
-        {"slice": write_slice_golden, "tools": write_tools_golden}[w]()
+        {"slice": write_slice_golden, "tools": write_tools_golden,
+         "lowdelay": write_lowdelay_golden}[w]()
