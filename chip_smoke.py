@@ -10,14 +10,16 @@ Phases (each prints its lines; any failure exits non-zero):
 3. kernel parity: me_refine and me_eval against their plain PyTorch
    versions at the 1080p shapes of the main path, bit-exact (tolerance
    0), on synthetic frames and on tie-heavy planes (me_eval with K = 1
-   and 4 pairs, every output flag, on reference stacks of one and two
-   pictures with random and coinciding per-pair indices); each kernel's
-   time, bound and blocks per SM per block size for one B frame's
-   launches with two reference pictures a list, their sum, me_eval's
-   time on one picture, and the plain versions' time. Bounds take each
-   kernel's operations at the rate of the pipe that runs them
-   (PIPE_LANES: float32 for both), from the card's SM count and maximum
-   SM clock;
+   and 4 pairs on reference stacks of one and two pictures, and in its
+   one-list mode with K = 1 and 5 on stacks of one, two and four
+   pictures, every output flag, with random and coinciding indices);
+   each kernel's time, bound and blocks per SM per block size for one B
+   frame's launches with two reference pictures a list, their sum,
+   me_eval's time on one picture, the one-list mode's time and bound for
+   one P frame's launches on one, two and four pictures, and the plain
+   versions' time. Bounds take each kernel's operations at the rate of
+   the pipe that runs them (PIPE_LANES: float32 for both), from the
+   card's SM count and maximum SM clock;
 4. main path: 1 IDR + 3 B frames of a 1920x1080 synthetic sequence
    through kvazaar_tpu_torch.api.encode_sequence on cuda, with the kernel
    launch counters read around it; every B frame must code intra leaves
@@ -41,13 +43,24 @@ Phases (each prints its lines; any failure exits non-zero):
    hash-exact, some B frame predicting from a second reference picture
    and some B frame running its wavefront; per frame POC, QP, list 0,
    bytes, PSNR, waves and times; then the same configuration at 416x240
-   (6 frames) on cuda and on the CPU: the same stream and maps.
+   (6 frames) on cuda and on the CPU: the same stream and maps;
+8. the P program (--no-bipred) with SMP, AMP and --ref 2: IDR + 3 P of
+   split-motion content at 1920x1080 (8 me_refine and 8 one-list
+   me_eval launches a P frame), hash-exact, some P frame choosing a
+   rectangular PU and some running its wavefront; per frame the bytes,
+   PSNR, waves, cells by part id and the submit, wavefront and host
+   entropy times (SMP slices are coded by the Python writer); then that
+   configuration (IDR + 2 P) and lp-g4d3t1 --ref 2 --no-bipred with the
+   tool row (6 frames) at 416x240 on cuda and on the CPU: the same
+   streams and maps.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6 and 7), the nvidia-smi name/power-limit
+over the encodes of phases 4, 6, 7 and 8; me_eval's pair and one-list
+modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
-The helpers mixed_frames, kernel_inputs, tie_planes, tie_inputs,
-kernel_errors, compare_devices, open_device and phase_kernels are shared
+The helpers mixed_frames, split_motion_frames, kernel_inputs,
+tie_planes, tie_inputs, kernel_errors, compare_devices, open_device and
+phase_kernels are shared
 with tests/test_torch_cuda.py and tools/ (tools/me_bench.py runs phases
 1-3 alone).
 """
@@ -73,6 +86,9 @@ PIPE_LANES = {"me_refine": ("fp32", 128), "me_eval": ("fp32", 128)}
 # candidate pairs a block of me_eval's widest call on the main path (the
 # merge candidates left, top, CTB corner and zero)
 EVAL_K = 4
+# candidates a block of me_eval's widest one-list call on the P path (the
+# merge candidates left, top, CTB corner, global MV and zero)
+EVAL_K_P = 5
 # the main path's picture size
 W, H = 1920, 1080
 # the tool row of bench.py's scenario 1 (bench.py:40-42, QP 27 at :123),
@@ -85,6 +101,8 @@ TOOL_LDB = dict(qp=27, sao_type="full", rdoq_enable=True,
 # with two references a list, run with the tool row
 LOWDELAY = dict(intra_period=0, gop_len=4, gop_lowdelay=True,
                 gop_lp=(3, 1), ref_frames=2)
+# the P program with SMP and AMP and two reference pictures
+P_SMP = dict(bipred=False, smp_enable=True, amp_enable=True, ref_frames=2)
 
 
 def fail(msg: str) -> None:
@@ -137,14 +155,50 @@ def mixed_frames(n, w, h):
     rng = np.random.RandomState(8)
     out = []
     for i, (y, cb, cr) in enumerate(synth_frames(n, w, h)):
-        py, px = 8 + 8 * i % (h - 31), 16 + 24 * i % (w - 55)
-        y[py:py + 24, px:px + 40] = rng.randint(0, 256, (24, 40))
-        cb[py // 2:py // 2 + 12, px // 2:px // 2 + 20] = \
-            rng.randint(60, 200, (12, 20))
-        y[40:64, 80:128] = np.clip(np.add.outer(np.arange(24) * 4,
-                                                np.arange(48) * 2) + 40 * i,
-                                   0, 255)
+        _fresh_patch(y, cb, i, rng)
         out.append((y, cb, cr))
+    return out
+
+
+def _fresh_patch(y, cb, i, rng) -> None:
+    """mixed_frames' content of frame i without a temporal match, in
+    place: a random-texture patch (luma and Cb) that moves 8 down and 24
+    across a frame, and a gradient in the top-left 128x64 whose
+    brightness changes."""
+    h, w = y.shape
+    py, px = 8 + 8 * i % (h - 31), 16 + 24 * i % (w - 55)
+    y[py:py + 24, px:px + 40] = rng.randint(0, 256, (24, 40))
+    cb[py // 2:py // 2 + 12, px // 2:px // 2 + 20] = \
+        rng.randint(60, 200, (12, 20))
+    y[40:64, 80:128] = np.clip(np.add.outer(np.arange(24) * 4,
+                                            np.arange(48) * 2) + 40 * i,
+                               0, 255)
+
+
+def split_motion_frames(n, w, h, seed=1234, edges=(48,), patch=False):
+    """Split-motion content (the generator of tests/test_smp.py, with
+    the seed of its `rng` fixture): a textured picture cut into
+    horizontal bands at the rows `edges` that pan 4 px a frame in turn
+    right and left, so that motion boundaries fall inside CUs and
+    rectangular PUs pay. With patch, mixed_frames' fresh content is added
+    to every frame (needs w >= 128 and h >= 64)."""
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    base = np.clip(70 + 50 * np.sin(xx / 13) * np.cos(yy / 9)
+                   + rng.randint(-12, 12, (h, w)), 0, 255).astype(np.int32)
+    cb = (128 + 25 * np.sin(xx[:h // 2, :w // 2] / 11)).astype(np.uint8)
+    cr = (128 + 25 * np.cos(yy[:h // 2, :w // 2] / 15)).astype(np.uint8)
+    bounds = [0, *edges, h]
+    prng = np.random.RandomState(8)
+    out = []
+    for i in range(n):
+        y = base.copy()
+        for j, (a, b) in enumerate(zip(bounds, bounds[1:])):
+            y[a:b] = np.roll(base[a:b], 4 * i * (1 - 2 * (j & 1)), axis=1)
+        y, fcb = y.astype(np.uint8), cb.copy()
+        if patch:
+            _fresh_patch(y, fcb, i, prng)
+        out.append((y, fcb, cr.copy()))
     return out
 
 
@@ -154,11 +208,12 @@ def mixed_frames(n, w, h):
 
 def kernel_inputs(ref, src, n, K, gen):
     """The n x n blocks of src in raster order, K random full-pel
-    candidates per block reaching +-100 px and EVAL_K random pairs of
+    candidates per block reaching +-100 px and EVAL_K_P random pairs of
     qpel MVs per block reaching +-100 px (both far outside the picture,
     so the index clamping is exercised), each MV with a random index
-    into a stack of two reference pictures, on ref's device. Returns
-    (blocks, cands, (mv0, mv1, r0, r1), cols)."""
+    into a stack of four reference pictures (taken mod 2 on stacks of
+    two), on ref's device. Returns (blocks, cands, (mv0, mv1, r0, r1),
+    cols)."""
     import torch
     rows, cols = src.shape[0] // n, src.shape[1] // n
     L = rows * cols
@@ -166,10 +221,10 @@ def kernel_inputs(ref, src, n, K, gen):
         .reshape(L, n, n).contiguous()
     cands = torch.randint(-100, 101, (L, K, 2), generator=gen,
                           dtype=torch.int32).to(ref.device)
-    mvs = tuple(torch.randint(-400, 401, (L, EVAL_K, 2), generator=gen,
+    mvs = tuple(torch.randint(-400, 401, (L, EVAL_K_P, 2), generator=gen,
                               dtype=torch.int32).to(ref.device)
                 for _ in range(2))
-    refs = tuple(torch.randint(0, 2, (L, EVAL_K), generator=gen,
+    refs = tuple(torch.randint(0, 4, (L, EVAL_K_P), generator=gen,
                                dtype=torch.int32).to(ref.device)
                  for _ in range(2))
     return blocks, cands, mvs + refs, cols
@@ -206,6 +261,9 @@ def tie_inputs(plane, n, K, gen, device):
 # want_satd, want_pred) of the first evaluation of the per-list winners,
 # the merge candidates, and the final prediction
 EVAL_CALLS = ((1, True, False), (EVAL_K, True, False), (1, False, True))
+# and its one-list calls per block size of a P frame: the merge
+# candidates and the final prediction
+EVAL_CALLS_P = ((EVAL_K_P, True, False), (1, False, True))
 
 
 def _max_diff(got, want):
@@ -214,30 +272,45 @@ def _max_diff(got, want):
     return max(int((a - b).abs().max()) for a, b in zip(got, want))
 
 
+def eval_stacks(torch, ref, ref1):
+    """Reference stacks of one, two and four pictures made of ref and
+    ref1 (the last two pictures shifted copies of them)."""
+    return (ref[None], torch.stack([ref, ref1]),
+            torch.stack([ref, ref1, ref.roll(3, 1), ref1.roll(5, 0)]))
+
+
 def eval_errors(me, ref, blocks, mvs, n, cols, ref1):
     """Largest absolute difference between me_eval's outputs and its plain
-    version's on the same inputs, in each call pattern of EVAL_CALLS and
-    with both outputs, on three pairs of reference stacks: [ref] for both
-    lists (indices 0); [ref, ref1] for both lists; [ref, ref1] for list 0
-    and [ref1, ref] for list 1, the last two with the per-pair indices of
-    mvs = (mv0, mv1, r0, r1) (12 launches)."""
+    version's on the same inputs, with both outputs and in each call
+    pattern: of EVAL_CALLS on three pairs of reference stacks, [ref] for
+    both lists (indices 0), [ref, ref1] for both lists, [ref, ref1] for
+    list 0 and [ref1, ref] for list 1, the last two with the per-pair
+    indices of mvs = (mv0, mv1, r0, r1) mod 2 (12 launches); then of
+    EVAL_CALLS_P in the one-list mode (mv0 and r0) on stacks of one, two
+    and four pictures (eval_stacks; indices 0, r0 mod 2, r0; 9
+    launches)."""
     import torch
 
     def flat(out):
         return [t for part in out if part is not None for t in part]
     mv0, mv1, r0, r1 = mvs
-    one, two = ref[None], torch.stack([ref, ref1])
+    one, two, four = eval_stacks(torch, ref, ref1)
     zero = torch.zeros_like(r0)
+    p0, p1 = r0 % 2, r1 % 2
+    cases = [((s0, s1, blocks, mv0, mv1, i0, i1), EVAL_CALLS)
+             for s0, s1, i0, i1 in ((one, one, zero, zero), (two, two, p0, p1),
+                                    (two, two.flip(0), p0, p1))]
+    cases += [((st, None, blocks, mv0, None, i0, None), EVAL_CALLS_P)
+              for st, i0 in ((one, zero), (two, p0), (four, r0))]
     err = 0
-    for s0, s1, i0, i1 in ((one, one, zero, zero), (two, two, r0, r1),
-                           (two, two.flip(0), r0, r1)):
-        for k, want_satd, want_pred in EVAL_CALLS + ((1, True, True),):
-            args = (s0, s1, blocks) + tuple(
-                a[:, :k].contiguous() for a in (mv0, mv1, i0, i1))
+    for args, calls in cases:
+        for k, want_satd, want_pred in calls + ((1, True, True),):
+            a = args[:3] + tuple(None if x is None else x[:, :k].contiguous()
+                                 for x in args[3:])
             kw = dict(n=n, cols=cols, want_satd=want_satd,
                       want_pred=want_pred)
-            err = max(err, _max_diff(flat(me.me_eval(*args, **kw)),
-                                     flat(me.me_eval_plain(*args, **kw))))
+            err = max(err, _max_diff(flat(me.me_eval(*a, **kw)),
+                                     flat(me.me_eval_plain(*a, **kw))))
     return err
 
 
@@ -291,26 +364,32 @@ def refine_work(n, L, K, hp, wp):
     return nbytes, L * per_block
 
 
-def eval_work(n, L, K, hp, wp, planes, want_satd, want_pred):
-    """One me_eval call of K pairs a block that reads `planes` distinct
-    reference pictures (eval_pictures): per list the horizontal and
-    vertical 8-tap passes and the rounding; with want_satd the
-    bi-average and three SATDs (difference, 2-D butterflies, |t|, sum)."""
-    nbytes = 4 * (planes * hp * wp + L * n * n + 2 * L * K * 2
-                  + (3 * L * K if want_satd else 0)
-                  + (2 * L * n * n if want_pred else 0))
-    per_pair = 2 * ((n + 7) * n * 16 + n * n * 20)
+def eval_work(n, L, K, hp, wp, planes, want_satd, want_pred, lists=2):
+    """One me_eval call of K pairs a block (K candidates of one list when
+    lists is 1) that reads `planes` distinct reference pictures
+    (eval_pictures): the MVs and reference indices of each list; per list
+    the horizontal and vertical 8-tap passes and the rounding; with
+    want_satd, for pairs the bi-average and three SATDs (difference, 2-D
+    butterflies, |t|, sum), for one list one SATD."""
+    sats = 3 if lists == 2 else 1
+    nbytes = 4 * (planes * hp * wp + L * n * n + lists * L * K * 3
+                  + (sats * L * K if want_satd else 0)
+                  + (lists * L * n * n if want_pred else 0))
+    per_pair = lists * ((n + 7) * n * 16 + n * n * 20)
     if want_satd:
-        per_pair += n * n * 4 + 3 * 9 * n * n
+        per_pair += (n * n * 4 if lists == 2 else 0) + sats * 9 * n * n
     return nbytes, L * K * per_pair
 
 
 def eval_pictures(args) -> int:
     """Distinct reference pictures that an me_eval call (ref0, ref1,
     blocks, mv0, mv1, r0, r1) reads: the planes its indices name, counted
-    once where both lists share one stack."""
+    once where both lists share one stack (list 0's alone in the one-list
+    mode)."""
     import torch
     s0, s1, _, _, _, r0, r1 = args
+    if s1 is None:
+        return int(r0.unique().numel())
     if s0 is s1:
         return int(torch.cat([r0.reshape(-1), r1.reshape(-1)])
                    .unique().numel())
@@ -378,32 +457,37 @@ def phase_kernels(me, torch, rates):
     """Bit-exact parity of both kernels with their plain versions at the
     slice's 1080p shapes, on the synthetic frames and on the tie-heavy
     planes (me_eval on reference stacks with random and coinciding
-    per-pair indices, eval_errors); then per block size each kernel's
-    time, bound and blocks per SM for one B frame's launches with two
-    reference pictures a list, list 1 being list 0 (the low-delay GOP's
-    pattern: me_refine once per list and picture; me_eval as EVAL_CALLS
-    on the two-picture stack with random per-pair indices), the B frame's
-    time as their sum, the plain versions' time for the same launches,
-    and me_eval's time for the same calls on one picture (the default
-    configuration's pattern). rates: ops_rates."""
+    per-pair indices, in both modes, eval_errors); then per block size
+    each kernel's time, bound and blocks per SM for one B frame's
+    launches with two reference pictures a list, list 1 being list 0
+    (the low-delay GOP's pattern: me_refine once per list and picture;
+    me_eval as EVAL_CALLS on the two-picture stack with random per-pair
+    indices), the B frame's time as their sum, the plain versions' time
+    for the same launches, and me_eval's time for the same calls on one
+    picture (the default configuration's pattern); then the same for
+    me_eval's one-list mode in one P frame's pattern (EVAL_CALLS_P) on
+    stacks of one, two and four pictures. rates: ops_rates."""
     hp, wp = H + (-H) % 64, W + (-W) % 64
     ref, src, ref1 = (torch.from_numpy(f[0].astype(np.int32)).cuda()
                       for f in synth_frames(3, wp, hp))
-    stack, one = torch.stack([ref, ref1]), ref[None]
+    one, stack, four = eval_stacks(torch, ref, ref1)
     lam = torch.tensor([153], dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     err = {"me_refine": 0, "me_eval": 0}
     calls = {"me_refine": {}, "me_eval": {}}
     calls_one = {}
+    # one P frame's one-list launches per stack depth
+    calls_p = {1: {}, 2: {}, 4: {}}
     for n in (8, 16, 32, 64):
         K = 2 if n <= 16 else 5
         blocks, cands, mvs, cols = kernel_inputs(ref, src, n, K, gen)
         e = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1)
         err = {k: max(v, e[k]) for k, v in err.items()}
         print(f"parity n={n} L={blocks.shape[0]} K={K}: max_abs_err "
-              f"me_refine {e['me_refine']}, me_eval (K = 1 and "
-              f"{EVAL_K}, every output, stacks of one and two pictures, "
-              f"random indices) {e['me_eval']}", flush=True)
+              f"me_refine {e['me_refine']}, me_eval (pairs: K = 1 and "
+              f"{EVAL_K}, stacks of one and two pictures; one list: K = 1 "
+              f"and {EVAL_K_P}, stacks of one, two and four pictures; "
+              f"every output, random indices) {e['me_eval']}", flush=True)
         for name, plane, lam_t in tie_planes(hp, wp):
             t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(
                 plane, n, K, gen, "cuda")
@@ -430,8 +514,15 @@ def phase_kernels(me, torch, rates):
                 dict(n=n, cols=cols, maxv=255, want_satd=want_satd,
                      want_pred=want_pred))
                 for k, want_satd, want_pred in EVAL_CALLS]
-        calls["me_eval"][n] = pattern(stack, r0, r1)
+        calls["me_eval"][n] = pattern(stack, r0 % 2, r1 % 2)
         calls_one[n] = pattern(one, zero, zero)
+        for st, i0 in ((one, zero), (stack, r0 % 2), (four, r0)):
+            calls_p[st.shape[0]][n] = [
+                ((st, None, blocks, mv0[:, :k].contiguous(), None,
+                  i0[:, :k].contiguous(), None),
+                 dict(n=n, cols=cols, maxv=255, want_satd=want_satd,
+                      want_pred=want_pred))
+                for k, want_satd, want_pred in EVAL_CALLS_P]
     if any(err.values()):
         fail(f"kernel/plain mismatch {err}")
 
@@ -441,7 +532,7 @@ def phase_kernels(me, torch, rates):
                                hp, wp)
         return eval_work(kw["n"], args[2].shape[0], args[3].shape[1], hp,
                          wp, eval_pictures(args), kw["want_satd"],
-                         kw["want_pred"])
+                         kw["want_pred"], 1 if args[1] is None else 2)
 
     def timed(kernel, cs):
         def run():
@@ -495,6 +586,38 @@ def phase_kernels(me, torch, rates):
           f"(default configuration) {sum(one_ms.values()):.4f} ms ("
           + " / ".join(f"{v:.4f}" for v in one_ms.values())
           + f" by size), bound {b_ms:.4f} ms by {b_by}", flush=True)
+    # the one-list mode: one P frame's launches (EVAL_CALLS_P a size) on
+    # stacks of one, two (the P phase's --ref 2) and four pictures
+    for R, per_size in calls_p.items():
+        p_ms = {n: timed(me.launch_eval, cs) for n, cs in per_size.items()}
+        works = [work("me_eval", a, kw) for cs in per_size.values()
+                 for a, kw in cs]
+        b_ms, b_by = bound_ms(works, rates["me_eval"])
+
+        def run_plain(per_size=per_size):
+            for cs in per_size.values():
+                for args, kw in cs:
+                    me.me_eval_plain(*args, **kw)
+        plain_ms = time_calls(run_plain, 1)[0]
+        for n in per_size:
+            occ = me.kernel_occupancy("me_eval", n, lists=1)
+            nb, nw = bound_ms([work("me_eval", a, kw)
+                               for a, kw in per_size[n]], rates["me_eval"])
+            print(f"me_eval one-list n={n} ({R} pictures): "
+                  f"{len(per_size[n])} launches {p_ms[n]:.4f} ms, bound "
+                  f"{nb:.4f} ms by {nw}; {occ['blocks_per_sm']} blocks per "
+                  f"SM of {occ['threads']} threads ({occ['sources']} source "
+                  f"blocks each), {occ['smem']} B shared, {occ['regs']} "
+                  f"registers, {occ['local']} B local", flush=True)
+        print(f"time me_eval one-list: one P frame's {len(works)} launches "
+              f"on {R} pictures {sum(p_ms.values()):.4f} ms (plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})",
+              flush=True)
+        if R == 2:
+            out["me_eval_one_list"] = dict(
+                ms=sum(p_ms.values()), plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err["me_eval"],
+                calls=len(works))
     return out
 
 
@@ -502,22 +625,26 @@ def encode_timed(torch, me, cfg, frames, label):
     """Encode frames through encode_sequence on cuda with the Config
     options cfg, the kernel launch counters set to 0 just before and read
     just after. Prints the run and, per frame, POC, QP, list 0, bytes,
-    PSNR, waves and the host-clock times (synchronized) of the frame's
-    submit, its wavefront, its SAO and its host entropy coding. Fails
-    unless every frame was coded by the native slice writers, each B
-    frame launched me_refine 8 times a reference picture of its stacks
-    (4 sizes x 2 lists) and me_eval 12 times, and the stream decodes
-    hash-exactly to the encoder's reconstruction. Returns (launches,
-    infos, per-frame reference maps: inter8, dir8, ref8, ref8b)."""
+    PSNR, waves, the cells of each SMP part id (P frames with SMP) and
+    the host-clock times (synchronized) of the frame's submit, its
+    wavefront, its SAO and its host entropy coding. Fails unless every
+    frame without SMP PUs was coded by the native slice writers (SMP
+    slices take the Python writer), each B frame launched me_refine 8
+    times a reference picture of its stacks (4 sizes x 2 lists) and
+    me_eval 12 times, each P frame me_refine 4 times a picture of its
+    stack and me_eval 8 times in its one-list mode, and the stream
+    decodes hash-exactly to the encoder's reconstruction. Returns
+    (launches, infos, per-frame reference maps: inter8, dir8, ref8,
+    ref8b, part8 where present)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
     enc = Encoder(Config(width=w, height=h, **cfg), device="cuda")
     times = {"submit": [], "wavefront": [], "sao": [], "host": []}
-    # submit_inter_b exists on the generalized-B path only
     wrap_timed(torch, enc._pipeline,
                {"submit": "submit", "submit_inter_b": "submit",
-                "_recon_md": "wavefront", "_sao": "sao"}, times)
+                "submit_inter": "submit", "_recon_md": "wavefront",
+                "_sao": "sao"}, times)
     wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
     lists, maps = [], []
     finalize = enc.finalize_frame
@@ -526,46 +653,62 @@ def encode_timed(torch, me, cfg, frames, label):
         out = finalize(meta)
         lists.append(list(meta["l0"]))
         maps.append({k: np.asarray(enc._last_decisions[k])
-                     for k in ("inter8", "dir8", "ref8", "ref8b")
+                     for k in ("inter8", "dir8", "ref8", "ref8b", "part8")
                      if k in enc._last_decisions})
         return out
     enc.finalize_frame = record
     me.me_refine.launches = 0
     me.me_eval.launches = 0
+    me.me_eval.one_list_launches = 0
     t0 = time.perf_counter()
     stream, infos = encode_sequence(enc.cfg, frames, encoder=enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"me_refine": me.me_refine.launches,
-                "me_eval": me.me_eval.launches}
+                "me_eval": me.me_eval.launches,
+                "me_eval_one_list": me.me_eval.one_list_launches}
     n_b = sum(1 for i in infos if i["slice_type"] == 0)
+    n_p = sum(1 for i in infos if i["slice_type"] == 1)
     # per B frame: me_refine per list, picture and size (2 x R x 4);
     # me_eval per size as EVAL_CALLS (the winners' pair, the merge
-    # candidates, the final prediction) x 4 sizes
-    n_pics = getattr(enc._pipeline, "n_refs_b", 1)
-    expect = {"me_refine": 8 * n_pics * n_b,
-              "me_eval": 4 * len(EVAL_CALLS) * n_b}
-    print(f"{label}: {len(infos)} frames ({n_b} B) at {w}x{h} in "
+    # candidates, the final prediction) x 4 sizes. Per P frame: me_refine
+    # per picture and size (R x 4); me_eval per size as EVAL_CALLS_P (the
+    # merge candidates, the final prediction) x 4 sizes, one list
+    pipe = enc._pipeline
+    one_list = 4 * len(EVAL_CALLS_P) * n_p
+    expect = {"me_refine": (8 * getattr(pipe, "n_refs_b", 1) * n_b
+                            + 4 * getattr(pipe, "n_refs", 1) * n_p),
+              "me_eval": 4 * len(EVAL_CALLS) * n_b + one_list,
+              "me_eval_one_list": one_list}
+    smp = sum("part8" in m for m in maps)
+    print(f"{label}: {len(infos)} frames ({n_b} B, {n_p} P) at {w}x{h} in "
           f"{wall:.3f} s = {len(infos) / wall:.4f} fps, {len(stream)} "
           f"bytes, launches {launches} (expected {expect}), native slices "
-          f"{enc.native_slices}", flush=True)
+          f"{enc.native_slices}, SMP slices (Python writer) {smp}",
+          flush=True)
     sao = times["sao"] or [None] * len(infos)
-    for k, (i, sub, wav, sao_ms, host, l0) in enumerate(zip(
+    for k, (i, sub, wav, sao_ms, host, l0, m) in enumerate(zip(
             infos, times["submit"], times["wavefront"], sao,
-            times["host"], lists)):
-        kind = "IDR" if i["slice_type"] == 2 else "B"
+            times["host"], lists, maps)):
+        kind = {2: "IDR", 1: "P", 0: "B"}[i["slice_type"]]
+        parts = ""
+        if "part8" in m:
+            ids, cnt = np.unique(m["part8"][m["inter8"].astype(bool)],
+                                 return_counts=True)
+            parts = (", inter cells by part id "
+                     + str(dict(zip(ids.tolist(), cnt.tolist()))))
         print(f"  frame {k} {kind} (POC {i['poc']}, QP {i['qp']}, l0 "
               f"{l0}): {i['bytes']} bytes, PSNR Y "
               f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
-              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}; submit wall "
-              f"{sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
+              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}{parts}; submit "
+              f"wall {sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
               f"{'off' if sao_ms is None else f'{sao_ms:.2f} ms'}, host "
               f"entropy coding {host:.1f} ms", flush=True)
     if launches != expect:
         fail(f"{label}: kernel launches {launches} != {expect}")
-    if enc.native_slices != len(infos):
+    if enc.native_slices != len(infos) - smp:
         fail(f"{label}: the native slice writers were not used for every "
-             "frame")
+             "frame without SMP")
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     t = time.perf_counter()
     pics = HEVCDecoder().decode(stream)
@@ -663,6 +806,48 @@ def phase_lowdelay(torch, me):
     return launches
 
 
+def phase_p(torch, me):
+    """The P program (--no-bipred) with SMP, AMP and two reference
+    pictures: IDR + 3 P of split_motion_frames at 1920x1080 (bands of 64
+    rows whose edges fall at y = 48 mod 64, inside CUs, plus fresh
+    content) through encode_sequence on cuda, hash-exact, with 8
+    me_refine and 8 me_eval launches a P frame; some P frame must choose
+    a rectangular PU and some P frame must run its wavefront. Then the
+    same configuration at 416x240 (IDR + 2 P) and lp-g4d3t1 --ref 2
+    --no-bipred with the tool row (6 frames of mixed_frames at 416x240)
+    on cuda and on the CPU: the same streams and maps. Returns the
+    launches of the 1080p encode."""
+    def frames(n, w, h):
+        return split_motion_frames(n, w, h, edges=tuple(range(48, h, 64)),
+                                   patch=True)
+    launches, infos, maps = encode_timed(torch, me, P_SMP, frames(4, W, H),
+                                         "P program (SMP/AMP, --ref 2)")
+    rect = {i["poc"]: int(((m["part8"] != 0) & m["inter8"]).sum())
+            for i, m in zip(infos, maps) if "part8" in m}
+    print(f"  8x8 cells in rectangular PUs, by POC: {rect}", flush=True)
+    if not any(rect.values()):
+        fail("P program: no P frame chose a rectangular PU")
+    if not any(int(i["n_waves"]) for i in infos if i["slice_type"] == 1):
+        fail("P program: no P frame coded an intra leaf (no wavefront)")
+    for label, cfg, fr in (
+            ("P SMP/AMP", P_SMP, frames(3, 416, 240)),
+            ("P low-delay", dict(TOOL_ROW, bipred=False, **LOWDELAY),
+             mixed_frames(6, 416, 240))):
+        t = time.perf_counter()
+        _, rows = compare_devices(fr, 416, 240, **cfg)
+        for i, r in enumerate(rows):
+            print(f"{label} device parity 416x240 frame {i}: stream "
+                  f"identical {r['same_stream']}, differing maps "
+                  f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
+                  flush=True)
+        print(f"{label} device parity: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        if not all(r["same_stream"] and not r["differing_maps"]
+                   for r in rows):
+            fail(f"{label}: cuda and CPU encodes differ")
+    return launches
+
+
 def phase_device_parity():
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps."""
@@ -736,6 +921,7 @@ def main() -> None:
     phase_device_parity()
     runs.append(phase_tools(torch, me))
     runs.append(phase_lowdelay(torch, me))
+    runs.append(phase_p(torch, me))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "
           f"of the encodes {launches}", flush=True)
@@ -744,12 +930,22 @@ def main() -> None:
                          "kvazaar_tpu/ops/pallas_me.py:346"),
            "me_eval": ("kvazaar_tpu_torch/csrc/me_eval.cu",
                        "kvazaar_tpu/ops/pallas_me.py:467")}
+    # me_eval's two modes are two rows: its pair mode (B frames; the
+    # numbers of one two-reference B frame's launches) and its one-list
+    # mode (P frames; one P frame's launches on two pictures)
+    counts = {"me_refine": launches["me_refine"],
+              "me_eval": launches["me_eval"] - launches["me_eval_one_list"],
+              "me_eval_one_list": launches["me_eval_one_list"]}
+    modes = {"me_refine": "one picture a launch",
+             "me_eval": "pairs (B frames)",
+             "me_eval_one_list": "one list (P frames)"}
+    src["me_eval_one_list"] = src["me_eval"]
     rows = []
-    for name in ("me_refine", "me_eval"):
+    for name in ("me_refine", "me_eval", "me_eval_one_list"):
         k = kern[name]
         rows.append({"name": name, "route": "cuda", "source": src[name][0],
-                     "replaces": src[name][1],
-                     "launches": launches[name],
+                     "replaces": src[name][1], "mode": modes[name],
+                     "launches": counts[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

@@ -3,12 +3,13 @@
 Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
 at a time, returning Annex-B chunks) for the configuration this port
 covers: CTB 64, 8-bit, constant QP, deblocking, SAO, RDOQ and sign-data
-hiding, an IDR every `intra_period` frames and generalized-B low-delay
-frames in between (list 1 = list 0, bi-prediction on) with 1-4 reference
-pictures (--ref; the B program searches the first two of each list), and
-the low-delay GOP (--gop lp-gGdDtT: per-layer QP offsets, keyframe
-references and selective retention of reference pictures). Options
-outside that (the GOP8 pyramid, --open-gop, the P program) raise
+hiding, an IDR every `intra_period` frames and low-delay frames in
+between with 1-4 reference pictures (--ref): generalized-B slices (list 1
+= list 0, bi-prediction on; the B program searches the first two of each
+list) or, with --no-bipred, P slices (SMP/AMP rectangular PUs with
+--smp/--amp), and the low-delay GOP (--gop lp-gGdDtT: per-layer QP
+offsets, keyframe references and selective retention of reference
+pictures). Options outside that (the GOP8 pyramid, --open-gop) raise
 NotImplementedError naming their ROADMAP.md entry.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
@@ -47,7 +48,7 @@ def build_sps(cfg: Config) -> SPS:
     sps.max_transform_hierarchy_depth_inter = 0
     sps.sao_enabled = 0 if cfg.sao_type == "off" else 1
     sps.scaling_list_enabled = 0
-    sps.amp_enabled = 0
+    sps.amp_enabled = 1 if cfg.amp_enable else 0
     sps.strong_intra_smoothing = 1 if cfg.strong_intra_smoothing else 0
     sps.temporal_mvp_enabled = 1 if cfg.intra_period != 1 else 0
     if cfg.gop_len > 1:
@@ -85,15 +86,12 @@ def build_pps(cfg: Config) -> PPS:
 
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    p_prog = "the P program and SMP/AMP"
     gop = "the GOP8 pyramid"
     intra = "the remaining intra variants"
     tiles = "tiles/multi-device"
     grid16 = "the 16-grid pipelines"
     for bad, what, entry in (
             (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
-            (not cfg.bipred, "--no-bipred (the P program)", p_prog),
-            (cfg.smp_enable or cfg.amp_enable, "--smp/--amp", p_prog),
             (cfg.gop_len > 1 and not cfg.gop_lowdelay,
              "B-pyramid GOPs (--gop 2/4/8/16)", gop),
             (cfg.open_gop, "--open-gop", gop),
@@ -121,8 +119,8 @@ def check_config(cfg: Config) -> None:
 
 
 class Encoder:
-    """HEVC encoder: IDR + generalized-B low-delay (optionally the lp GOP)
-    on the quadtree path."""
+    """HEVC encoder: IDR + low-delay generalized-B or (--no-bipred) P
+    frames, optionally in the lp GOP, on the quadtree path."""
 
     def __init__(self, cfg: Config, device="cuda") -> None:
         import torch
@@ -151,9 +149,10 @@ class Encoder:
                   device=self.device)
         if self.inter_enabled:
             from .models.inter_md import MdInterPipeline
-            self._pipeline = MdInterPipeline(self.sps.height,
-                                             self.sps.width, cfg.qp,
-                                             n_refs=self.n_refs, **kw)
+            self._pipeline = MdInterPipeline(
+                self.sps.height, self.sps.width, cfg.qp, n_refs=self.n_refs,
+                smp=cfg.smp_enable or cfg.amp_enable, amp=cfg.amp_enable,
+                **kw)
         else:
             from .models.intra_md import MdIntraPipeline
             self._pipeline = MdIntraPipeline(self.sps.height,
@@ -231,10 +230,12 @@ class Encoder:
                         mode="edge")
             cr = np.pad(cr, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
+        # generalized B (list 1 = list 0), or P with --no-bipred
+        use_b = cfg.bipred
         meta = {"is_idr": is_idr, "poc": self.poc, "qp": qp,
                 "frame_num": self.frame_num, "y": y, "cb": cb, "cr": cr,
-                "slice_type": 2 if is_idr else 0, "l0": l0,
-                "l1": list(l0), "is_ref": is_ref}
+                "slice_type": 2 if is_idr else 0 if use_b else 1,
+                "l0": l0, "l1": list(l0) if use_b else [], "is_ref": is_ref}
         if is_idr:
             meta["dev"] = self._pipeline.submit(y, cb, cr, qp=qp)
         else:
@@ -242,8 +243,12 @@ class Encoder:
             refs = [by_poc[p] for p in l0]
             lists = ([e["y"] for e in refs], [e["cb"] for e in refs],
                      [e["cr"] for e in refs])
-            meta["dev"] = self._pipeline.submit_inter_b(
-                y, cb, cr, lists, lists, l0, l0, qp=qp)
+            if use_b:
+                meta["dev"] = self._pipeline.submit_inter_b(
+                    y, cb, cr, lists, lists, l0, l0, qp=qp)
+            else:
+                meta["dev"] = self._pipeline.submit_inter(
+                    y, cb, cr, *lists, ref_pocs=l0, qp=qp)
         if self.inter_enabled and is_ref:
             self._push_ref({"poc": self.poc, "y": meta["dev"]["rec_y"],
                             "cb": meta["dev"]["rec_cb"],
@@ -283,17 +288,22 @@ class Encoder:
                 delta_pocs_s1=[p - poc for p in fut],
                 used_s1=[1 if p in l1 else 0 for p in fut])
             sh.short_term_rps_sps_flag = 0
+            # a P slice has no list 1 to count
+            is_b = meta["slice_type"] == 0
             if (len(l0) != self.pps.num_ref_idx_l0_default_minus1 + 1
-                    or len(l1) != self.pps.num_ref_idx_l1_default_minus1 + 1):
+                    or (is_b and len(l1)
+                        != self.pps.num_ref_idx_l1_default_minus1 + 1)):
                 sh.num_ref_idx_active_override = 1
                 sh.num_ref_idx_l0_active_minus1 = len(l0) - 1
-                sh.num_ref_idx_l1_active_minus1 = len(l1) - 1
+                if is_b:
+                    sh.num_ref_idx_l1_active_minus1 = len(l1) - 1
         return sh
 
     def _slice_data(self, meta, sh, decisions) -> tuple[list, object]:
         """Entropy-code the slice: the native C++ writers, or the Python
-        writers where the library cannot be built. Returns (substreams,
-        motion field for TMVP or None)."""
+        writers where the library cannot be built and for SMP/AMP slices
+        (the native writer has no part_mode syntax). Returns
+        (substreams, motion field for TMVP or None)."""
         from . import native
         slice_type = meta["slice_type"]
         sdh = bool(self.pps.sign_data_hiding_enabled)
@@ -322,7 +332,7 @@ class Encoder:
             writer = MdPSliceWriter(self.sps, self.pps, sh, decisions, re0,
                                     meta["poc"], ref_entries_l1=re1,
                                     union_pocs=l0)
-            if native.available():
+            if native.available() and "part8" not in decisions:
                 data, _, mv4, refpoc4 = native.encode_md_slice_pb(
                     decisions, sh, writer.helper.ref_list, meta["poc"],
                     False, sdh=sdh, ref_entries_l1=writer.helper.ref_list1,
@@ -394,7 +404,7 @@ class Encoder:
         if cfg.aud_enable:
             from .bitstream import NAL_AUD
             aud = BitWriter()
-            aud.u(2 if meta["slice_type"] == 0 else 0, 3)
+            aud.u({0: 2, 1: 1}.get(meta["slice_type"], 0), 3)
             aud.byte_align_one()
             out += nal_unit(aud.get_bytes(), NAL_AUD)
         vp = cfg.vps_period * cfg.intra_period

@@ -1,7 +1,9 @@
 // me_eval: exact evaluation of K candidate pairs (list 0 MV and
 // reference, list 1 MV and reference) per source block: both 14-bit
 // predictions, their two uni-prediction SATDs and the SATD of their exact
-// bi-prediction average.
+// bi-prediction average. In its one-list mode (P slices: no list 1) it
+// evaluates K single candidates (MV and reference) per block: one
+// prediction and its SATD.
 //
 // Replaces the TPU kernel kvazaar_tpu/ops/pallas_me.py me_eval
 // (pallas_call at :467; me_eval :489, make_eval_kernel :395,
@@ -18,7 +20,10 @@
 // Hadamard tiles, (sum|t| + 2) >> 2 per tile) of the source minus
 // clamp((v_l + 32) >> 6) for each list and minus
 // clamp((v_0 + v_1 + 64) >> 7) for the pair; with want_pred (K = 1),
-// v_0 and v_1 themselves.
+// v_0 and v_1 themselves. The one-list mode (LISTS = 1, chosen by a null
+// ref1) loads one window a candidate, makes one prediction and one SATD
+// and writes no bi-average; it keeps one buffer set, so n = 16 and 32
+// take half the shared memory of the pair mode.
 //
 // Bound on an H100: per call the larger of its bytes (the planes, the
 // source and the MVs read once, the outputs written once) and its
@@ -70,7 +75,7 @@
 
 namespace {
 
-template <int N>
+template <int N, int LISTS>
 struct EvalGeom {
     static constexpr int WE = N + 7;           // window side (odd stride)
     static constexpr int HSTR = N + 1;         // horizontal-pass row stride
@@ -83,15 +88,17 @@ struct EvalGeom {
     // through each phase together (half the syncs), 1 one list after the
     // other (half the shared memory: n = 8 packs 16 source blocks, and
     // n = 64 stays at 38.8 KB a block)
-    static constexpr int BUFS = N == 8 || N == 64 ? 1 : 2;
+    static constexpr int BUFS = LISTS == 1 || N == 8 || N == 64 ? 1 : 2;
+    // SATDs a candidate: list 0, list 1 and the bi-average, or list 0
+    static constexpr int NS = LISTS == 2 ? 3 : 1;
     // __launch_bounds__ minimum blocks per SM, which caps the registers
     // (at 80 for 128 threads, 64 for 512)
     static constexpr int MIN_BLOCKS = N == 64 ? 2 : 6;
     static constexpr int WIN = WE * WE, HP = WE * HSTR;
     // shared words per source block: the buffer sets, the per-warp
-    // partial sums of the three SATDs
+    // partial sums of the NS SATDs
     static constexpr int PER = BUFS * (WIN + HP)
-                               + (WARPS > 1 ? 3 * WARPS : 0);
+                               + (WARPS > 1 ? NS * WARPS : 0);
     // and the 4 x 8 filter taps, shared by the block
     static constexpr int SMEM_WORDS = P * PER + 32;
     static_assert(TPB % 8 == 0 && THREADS % 32 == 0, "lane groups");
@@ -101,7 +108,7 @@ struct EvalGeom {
 // source blocks when they have 32 threads or fewer)
 template <int N>
 __device__ __forceinline__ void group_sync() {
-    if (EvalGeom<N>::TPB <= 32)
+    if (EvalGeom<N, 2>::TPB <= 32)
         __syncwarp();
     else
         __syncthreads();
@@ -121,7 +128,7 @@ template <int N>
 __device__ __forceinline__ void load_window(const int* __restrict__ ref,
                                             int H, int W, int iy, int ix,
                                             float* s_win, int t) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, 2>;
     constexpr int WE = G::WE;
     if constexpr (G::TPB >= WE) {
         constexpr int RPP = G::TPB / WE;   // rows a pass
@@ -157,7 +164,7 @@ __device__ __forceinline__ void load_window(const int* __restrict__ ref,
 template <int N>
 __device__ __forceinline__ void hpass(const float* s_win, float* s_h,
                                       const float* f, int t) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, 2>;
     float fk[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) fk[k] = f[k];
@@ -183,7 +190,7 @@ __device__ __forceinline__ void hpass(const float* s_win, float* s_h,
 template <int N>
 __device__ __forceinline__ void vpass(const float* s_h, const float* f,
                                       int x, int ty, float (&v)[8]) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, 2>;
     float fk[8], hv[15];
 #pragma unroll
     for (int k = 0; k < 8; ++k) fk[k] = f[k];
@@ -235,16 +242,16 @@ __device__ __forceinline__ int satd_tile(float (&d)[8], int lane) {
     return ((int)a + 2) >> 2;
 }
 
-template <int N>
-__global__ void __launch_bounds__(EvalGeom<N>::THREADS,
-                                  EvalGeom<N>::MIN_BLOCKS)
+template <int N, int LISTS>
+__global__ void __launch_bounds__(EvalGeom<N, LISTS>::THREADS,
+                                  EvalGeom<N, LISTS>::MIN_BLOCKS)
 me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
                int H, int W, const int* __restrict__ src,
                const int* __restrict__ mv0, const int* __restrict__ mv1,
                const int* __restrict__ ri0, const int* __restrict__ ri1,
                int K, int L, int cols, int maxv, int* __restrict__ satd_out,
                int* __restrict__ pred_out) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, LISTS>;
     extern __shared__ float smem[];
     const int g = threadIdx.x / G::TPB, t = threadIdx.x % G::TPB;
     const int lane = threadIdx.x & 31, warp = t >> 5;
@@ -275,6 +282,7 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
 #pragma unroll
     for (int i = 0; i < 8; ++i) sv[i] = (float)srcb[(ty + i) * N + x];
     const float maxvf = (float)maxv;
+    const size_t plane = (size_t)H * W;
 
     // Phases: window, sync, horizontal pass, sync, vertical pass. Each
     // sync orders the readers of one buffer before its next writers: the
@@ -283,12 +291,11 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
     for (int k = 0; k < K; ++k) {
         const size_t m = ((size_t)b * K + k) * 2;
         const int ax = mv0[m], ay = mv0[m + 1];
-        const int bx = mv1[m], by = mv1[m + 1];
-        const size_t plane = (size_t)H * W;
         const int* pl0 = ref0 + ri0[m >> 1] * plane;
-        const int* pl1 = ref1 + ri1[m >> 1] * plane;
         float v0[8], v1[8];
-        if (G::BUFS == 2) {
+        if (LISTS == 2 && G::BUFS == 2) {
+            const int bx = mv1[m], by = mv1[m + 1];
+            const int* pl1 = ref1 + ri1[m >> 1] * plane;
             load_window<N>(pl0, H, W, y0 + (ay >> 2) - 3,
                            x0 + (ax >> 2) - 3, s_win0, t);
             load_window<N>(pl1, H, W, y0 + (by >> 2) - 3,
@@ -306,12 +313,16 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
             hpass<N>(s_win0, s_h0, s_taps + (ax & 3) * 8, t);
             group_sync<N>();
             vpass<N>(s_h0, s_taps + (ay & 3) * 8, x, ty, v0);
-            load_window<N>(pl1, H, W, y0 + (by >> 2) - 3,
-                           x0 + (bx >> 2) - 3, s_win1, t);
-            group_sync<N>();
-            hpass<N>(s_win1, s_h1, s_taps + (bx & 3) * 8, t);
-            group_sync<N>();
-            vpass<N>(s_h1, s_taps + (by & 3) * 8, x, ty, v1);
+            if (LISTS == 2) {
+                const int bx = mv1[m], by = mv1[m + 1];
+                const int* pl1 = ref1 + ri1[m >> 1] * plane;
+                load_window<N>(pl1, H, W, y0 + (by >> 2) - 3,
+                               x0 + (bx >> 2) - 3, s_win1, t);
+                group_sync<N>();
+                hpass<N>(s_win1, s_h1, s_taps + (bx & 3) * 8, t);
+                group_sync<N>();
+                vpass<N>(s_h1, s_taps + (by & 3) * 8, x, ty, v1);
+            }
         }
         if (pred_out != nullptr && live) {
             int* p0 = pred_out + (size_t)b * N * N;
@@ -319,13 +330,13 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
                 p0[(ty + i) * N + x] = (int)v0[i];
-                p1[(ty + i) * N + x] = (int)v1[i];
+                if (LISTS == 2) p1[(ty + i) * N + x] = (int)v1[i];
             }
         }
         if (satd_out == nullptr) continue;
-        int s[3];
+        int s[G::NS];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
+        for (int c = 0; c < G::NS; ++c) {
             float d[8];
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
@@ -341,60 +352,62 @@ me_eval_kernel(const int* __restrict__ ref0, const int* __restrict__ ref1,
             if (G::TPB >= 32) s[c] += __shfl_xor_sync(0xffffffffu, s[c], 16);
         }
         if (G::WARPS > 1) {
-            if (lane < 3)
-                s_red[warp * 3 + lane] = lane == 0 ? s[0]
-                                       : lane == 1 ? s[1] : s[2];
+            if (lane < G::NS)
+                s_red[warp * G::NS + lane] = lane == 0 ? s[0]
+                                           : lane == 1 ? s[1 % G::NS]
+                                                       : s[2 % G::NS];
             group_sync<N>();
-            if (t < 3) {
+            if (t < G::NS) {
                 int a = 0;
 #pragma unroll
-                for (int w = 0; w < G::WARPS; ++w) a += s_red[w * 3 + t];
+                for (int w = 0; w < G::WARPS; ++w) a += s_red[w * G::NS + t];
                 if (live) satd_out[((size_t)t * L + b) * K + k] = a;
             }
         } else if (t == 0 && live) {
 #pragma unroll
-            for (int c = 0; c < 3; ++c)
+            for (int c = 0; c < G::NS; ++c)
                 satd_out[((size_t)c * L + b) * K + k] = s[c];
         }
     }
 }
 
-template <int N>
+template <int N, int LISTS>
 cudaError_t prepare(size_t* smem) {
-    *smem = sizeof(float) * EvalGeom<N>::SMEM_WORDS;
-    return cudaFuncSetAttribute(me_eval_kernel<N>,
+    *smem = sizeof(float) * EvalGeom<N, LISTS>::SMEM_WORDS;
+    return cudaFuncSetAttribute(me_eval_kernel<N, LISTS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem);
 }
 
-template <int N>
+template <int N, int LISTS>
 cudaError_t launch(const int* ref0, const int* ref1, int H, int W,
                    const int* src, const int* mv0, const int* mv1,
                    const int* ri0, const int* ri1, int K, int L, int cols,
                    int maxv, int* satd, int* pred, cudaStream_t stream) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, LISTS>;
     size_t smem;
-    cudaError_t e = prepare<N>(&smem);
+    cudaError_t e = prepare<N, LISTS>(&smem);
     if (e != cudaSuccess) return e;
     if (L > 0 && K > 0)
-        me_eval_kernel<N><<<(L + G::P - 1) / G::P, G::THREADS, smem,
-                            stream>>>(ref0, ref1, H, W, src, mv0, mv1, ri0,
-                                      ri1, K, L, cols, maxv, satd, pred);
+        me_eval_kernel<N, LISTS><<<(L + G::P - 1) / G::P, G::THREADS, smem,
+                                   stream>>>(ref0, ref1, H, W, src, mv0,
+                                             mv1, ri0, ri1, K, L, cols,
+                                             maxv, satd, pred);
     return cudaGetLastError();
 }
 
-template <int N>
+template <int N, int LISTS>
 cudaError_t info(int* out) {
-    using G = EvalGeom<N>;
+    using G = EvalGeom<N, LISTS>;
     size_t smem;
-    cudaError_t e = prepare<N>(&smem);
+    cudaError_t e = prepare<N, LISTS>(&smem);
     if (e != cudaSuccess) return e;
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, me_eval_kernel<N>, G::THREADS, smem);
+        &blocks, me_eval_kernel<N, LISTS>, G::THREADS, smem);
     if (e != cudaSuccess) return e;
     cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, me_eval_kernel<N>);
+    e = cudaFuncGetAttributes(&a, me_eval_kernel<N, LISTS>);
     if (e != cudaSuccess) return e;
     out[0] = blocks;
     out[1] = G::THREADS;
@@ -405,26 +418,49 @@ cudaError_t info(int* out) {
     return cudaSuccess;
 }
 
-}  // namespace
-
-// Launch geometry of the size-n kernel: out[0..5] = blocks per SM the
-// launch achieves (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// threads per block, source blocks per block, dynamic shared bytes per
-// block, registers per thread, local (spill) bytes per thread.
-extern "C" int kvz_me_eval_info(int n, int* out) {
+template <int LISTS>
+cudaError_t info_n(int n, int* out) {
     switch (n) {
-        case 8: return info<8>(out);
-        case 16: return info<16>(out);
-        case 32: return info<32>(out);
-        case 64: return info<64>(out);
+        case 8: return info<8, LISTS>(out);
+        case 16: return info<16, LISTS>(out);
+        case 32: return info<32, LISTS>(out);
+        case 64: return info<64, LISTS>(out);
         default: return cudaErrorInvalidValue;
     }
+}
+
+template <int LISTS>
+cudaError_t launch_n(const int* f0, const int* f1, int H, int W,
+                     const int* s, const int* m0, const int* m1,
+                     const int* i0, const int* i1, int K, int L, int n,
+                     int cols, int maxv, int* sd, int* p, cudaStream_t st) {
+    switch (n) {
+        case 8: return launch<8, LISTS>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 16: return launch<16, LISTS>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 32: return launch<32, LISTS>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        case 64: return launch<64, LISTS>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+// Launch geometry of the size-n kernel with `lists` lists (1 or 2):
+// out[0..5] = blocks per SM the launch achieves
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads per block,
+// source blocks per block, dynamic shared bytes per block, registers per
+// thread, local (spill) bytes per thread.
+extern "C" int kvz_me_eval_info(int n, int lists, int* out) {
+    if (lists == 1) return info_n<1>(n, out);
+    if (lists == 2) return info_n<2>(n, out);
+    return cudaErrorInvalidValue;
 }
 
 // ref0, ref1: int32 stacks [R, H, W]; r0, r1: int32 [L, K] plane
 // indices, each below its stack's R (the caller checks); satd: int32
 // [3, L, K] (list 0, list 1, bi) or null; pred: int32 [2, L, n, n] (v_0,
-// v_1 of pair 0; K must be 1) or null.
+// v_1 of pair 0; K must be 1) or null. A null ref1 selects the one-list
+// mode: mv1 and r1 are not read, satd is [1, L, K] and pred [1, L, n, n].
 extern "C" int kvz_me_eval(const void* ref0, const void* ref1, int H, int W,
                            const void* src, const void* mv0, const void* mv1,
                            const void* r0, const void* r1, int K, int L,
@@ -440,11 +476,9 @@ extern "C" int kvz_me_eval(const void* ref0, const void* ref1, int H, int W,
     int* sd = static_cast<int*>(satd);
     int* p = static_cast<int*>(pred);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (n) {
-        case 8: return launch<8>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
-        case 16: return launch<16>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
-        case 32: return launch<32>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
-        case 64: return launch<64>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, cols, maxv, sd, p, st);
-        default: return cudaErrorInvalidValue;
-    }
+    if (f1 == nullptr)
+        return launch_n<1>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, n, cols,
+                           maxv, sd, p, st);
+    return launch_n<2>(f0, f1, H, W, s, m0, m1, i0, i1, K, L, n, cols, maxv,
+                       sd, p, st);
 }

@@ -1,9 +1,22 @@
-"""Quadtree (CTB 64) inter pipeline in PyTorch: generalized-B slices.
+"""Quadtree (CTB 64) inter pipeline in PyTorch: P and generalized-B slices.
 
-Device port of the B program of kvazaar_tpu/models/inter_md.py with one
-or two reference pictures a list (--ref 1-4; the stacks are padded to
-n_refs_b = min(2, n_refs) by repeating their last picture), bi-prediction
-on, --subme 4, inter CU depths 0-3, no SMP/AMP:
+Device port of the P and B programs of kvazaar_tpu/models/inter_md.py,
+--subme 4, inter CU depths 0-3.
+
+P slices (--no-bipred; submit_inter): one reference stack of n_refs
+pictures (--ref 1-4, padded by repeating the last); per size the
+SATD-best picture and MV of the me_refine results, a merge alignment over
+five candidates (left, top, CTB corner, the global MV, zero; one me_eval
+launch in its one-list mode), the exact RD cost against intra, and with
+--smp/--amp rectangular PUs (2NxN/Nx2N at 16 and 32, the four asymmetric
+modes at 32) searched per PU in plain PyTorch (integer +-3 SAD sweep,
+half- then quarter-pel SATD steps) competing in the DP; the SMP CUs
+reconstruct cell by cell with their PUs' motion.
+
+B slices (submit_inter_b), with one or two reference pictures a list
+(the stacks are padded to n_refs_b = min(2, n_refs) by repeating their
+last picture), bi-prediction on, no SMP/AMP (the reference's B program
+has none):
 
 1. hierarchical ME, per list and reference picture: an exhaustive +-24
    coarse sweep at 1/4 resolution gives a 16x16-block motion field; every
@@ -25,14 +38,15 @@ from __future__ import annotations
 import torch
 
 from ..ops.mc import CHROMA_FILTERS
-from ..ops.me import me_eval, me_refine, satd_tiles
+from ..ops.me import (MV_CLAMP, REFINE, clamped_window, mc_luma_plain,
+                      me_eval, me_refine, satd_tiles)
 from .intra_md import F32, I32, MdIntraPipeline, rep2, unsupported
 
 NO_REF_POC = -(1 << 30)
 
 
 class MdInterPipeline(MdIntraPipeline):
-    """B-slice quadtree encoder compute path for one frame size."""
+    """P/B-slice quadtree encoder compute path for one frame size."""
 
     COARSE = 4          # downsample factor of the wide sweep
     COARSE_RANGE = 24   # coarse integer range (=> +-96 full-res)
@@ -50,19 +64,32 @@ class MdInterPipeline(MdIntraPipeline):
     DPC_PART1_0, DPC_PART1_1 = 28, 29
     DPC_PART3_0, DPC_PART3_1 = 30, 31
     DPC_PU_EXTRA = 32
-    # merge_idx estimate deltas (bits) of the left/top/CTB-corner/zero
-    # candidates
+    # merge_idx estimate deltas (bits) of the B merge candidates left, top,
+    # CTB corner and zero
     MERGE_DELTAS = (0.0, 0.8, 1.2, 1.6)
+    # and of the P merge candidates left, top, CTB corner, global MV and
+    # zero
+    MERGE_DELTAS_P = (0.0, 0.8, 1.2, 1.2, 1.6)
+    # SMP/AMP part ids (the decoder's part_mode order): the PUs (dy, dx,
+    # height, width) of an n-CU
+    PART_GEOM = {
+        1: lambda n: ((0, 0, n // 2, n), (n // 2, 0, n // 2, n)),  # 2NxN
+        2: lambda n: ((0, 0, n, n // 2), (0, n // 2, n, n // 2)),  # Nx2N
+        3: lambda n: ((0, 0, n // 4, n),
+                      (n // 4, 0, 3 * n // 4, n)),                 # 2NxnU
+        4: lambda n: ((0, 0, 3 * n // 4, n),
+                      (3 * n // 4, 0, n // 4, n)),                 # 2NxnD
+        5: lambda n: ((0, 0, n, n // 4),
+                      (0, n // 4, n, 3 * n // 4)),                 # nLx2N
+        6: lambda n: ((0, 0, n, 3 * n // 4),
+                      (0, 3 * n // 4, n, n // 4)),                 # nRx2N
+    }
 
     def __init__(self, height: int, width: int, qp: int,
-                 n_refs: int = 1, b_slices: bool = True,
-                 pu_depth_inter: tuple[int, int] = (0, 3),
-                 subme: int = 4, bipred: bool = True,
-                 smp: bool = False, amp: bool = False, **kw) -> None:
+                 n_refs: int = 1, pu_depth_inter: tuple[int, int] = (0, 3),
+                 subme: int = 4, smp: bool = False, amp: bool = False,
+                 **kw) -> None:
         for bad, what, entry in (
-                (not bipred or not b_slices, "--no-bipred (the P program)",
-                 "the P program and SMP/AMP"),
-                (smp or amp, "--smp/--amp", "the P program and SMP/AMP"),
                 (tuple(pu_depth_inter) != (0, 3),
                  "--pu-depth-inter other than 0-3",
                  "the remaining intra variants"),
@@ -71,8 +98,17 @@ class MdInterPipeline(MdIntraPipeline):
             if bad:
                 raise unsupported(what, entry)
         super().__init__(height, width, qp, **kw)
-        # fixed per-list stack depth (padded by repeating the last picture)
-        self.n_refs_b = min(2, max(1, n_refs))
+        # P stack depth; B stacks: fixed per-list depth (both padded by
+        # repeating the last picture)
+        self.n_refs = max(1, n_refs)
+        self.n_refs_b = min(2, self.n_refs)
+        # --smp/--amp: rectangular PUs in P slices (the B program has none)
+        self.smp = bool(smp or amp)
+        self.amp = bool(amp)
+        # inter CU sizes from --pu-depth-inter (0 = 64 .. 3 = 8)
+        lo, hi = pu_depth_inter
+        self.allow_inter = {64: lo <= 0, 32: lo <= 1 <= hi,
+                            16: lo <= 2 <= hi, 8: hi >= 3}
 
     def _dpc_vec(self, qp: int) -> list[float]:
         from ..engine.bit_cost import inter_dp_costs
@@ -89,24 +125,21 @@ class MdInterPipeline(MdIntraPipeline):
     # ------------------------------------------------------------------
 
     def _mc_chroma_sel(self, planes, ref, mv, cy0, cx0, nc: int,
-                       hi: bool = False):
-        """Chroma MC from a reference stack [K, Hc, Wc] with per-block
-        ref index; clamped indices equal edge padding."""
-        _, hc, wc = planes.shape
-        ar = self._arange(nc + 3)
-        wy = (cy0 + (mv[:, 1] >> 3) - 1)[:, None] + ar[None, :]
-        wx = (cx0 + (mv[:, 0] >> 3) - 1)[:, None] + ar[None, :]
-        wy = wy.clamp(0, hc - 1)
-        wx = wx.clamp(0, wc - 1)
-        win = planes[ref.long()[:, None, None], wy[:, :, None],
-                     wx[:, None, :]]
+                       hi: bool = False, nch: int | None = None):
+        """Chroma MC of [L, nch, nc] blocks (nch = nc when None) from a
+        reference stack [K, Hc, Wc] with per-block ref index; clamped
+        indices equal edge padding."""
+        nch = nc if nch is None else nch
+        win = clamped_window(planes, cy0 + (mv[:, 1] >> 3) - 1,
+                             cx0 + (mv[:, 0] >> 3) - 1, nch + 3, nc + 3,
+                             ref)
         fmat = torch.as_tensor(CHROMA_FILTERS, dtype=I32,
                                device=self.device)
         cxf = fmat[(mv[:, 0] & 7).long()]
         cyf = fmat[(mv[:, 1] & 7).long()]
         h14 = sum(cxf[:, k, None, None] * win[:, :, k:k + nc]
                   for k in range(4))
-        v = sum(cyf[:, k, None, None] * h14[:, k:k + nc, :]
+        v = sum(cyf[:, k, None, None] * h14[:, k:k + nch, :]
                 for k in range(4)) >> 6
         if hi:
             return v
@@ -193,24 +226,23 @@ class MdInterPipeline(MdIntraPipeline):
         out = {8: [], 16: [], 32: [], 64: []}
         for k in range(refs_y.shape[0]):
             ref = refs_y[k].contiguous()
-            f16 = fields[k]
             for n in (8, 16, 32, 64):
-                rows, cols = self.h // n, self.w // n
-                if n in (8, 16):
-                    c0 = self._field_for(f16, n)
-                    cands = torch.stack([c0, torch.zeros_like(c0)], dim=1)
-                else:
-                    cands = torch.cat(
-                        [self._field_for(f16, n),
-                         torch.zeros((rows * cols, 1, 2), dtype=I32,
-                                     device=self.device)], dim=1)
-                    c0 = cands[:, 0, :]
+                cands = self._me_cands(fields[k], n)
                 blocks = self._blocks(src_y, n).contiguous()
                 mv_q, satd, pred = me_refine(ref, blocks, cands.contiguous(),
-                                             lam64, n=n, cols=cols,
+                                             lam64, n=n, cols=self.w // n,
                                              maxv=self.maxv)
-                out[n].append((mv_q, satd, pred, c0))
+                out[n].append((mv_q, satd, pred, cands[:, 0]))
         return out
+
+    def _me_cands(self, f16, n: int):
+        """Integer candidates [L, K, 2] of every aligned n-block from a
+        16-field: the own/parent field MV + zero at 8/16, four spread
+        field samples + zero at 32/64."""
+        c = self._field_for(f16, n)
+        if n in (8, 16):
+            return torch.stack([c, torch.zeros_like(c)], dim=1)
+        return torch.cat([c, torch.zeros_like(c[:, :1])], dim=1)
 
     def _mv_bins(self, mvd):
         """Fractional-bit cost of an MVD at context init states."""
@@ -233,16 +265,24 @@ class MdInterPipeline(MdIntraPipeline):
             return self.dpc[self.DPC_REF0]
         return self.dpc[self.DPC_REF_STEP] + float(max(0, k - 1))
 
+    def _ref_bits(self, r, n_list: int):
+        """ref_idx signalling bits of the per-block indices r in a list of
+        n_list pictures."""
+        return sum(torch.where(r == k, self._ref_cost(k, n_list), 0.0)
+                   for k in range(n_list))
+
     def _pick_ref_me(self, me, lam_satd):
         """Best reference of one list from its per-picture ME results at
         one size (strict < in stack order, SATD + sqrt-lambda x (MVD +
-        ref_idx bits)): (mv, ref index, satd, mvd bits)."""
+        ref_idx bits)): (mv, ref index, satd, mvd bits, me_refine's
+        prediction)."""
         best = None
-        for k, (mv_k, satd_k, _, cand0) in enumerate(me):
+        for k, (mv_k, satd_k, pred_k, cand0) in enumerate(me):
             bits_k = self._mv_bins(mv_k - cand0 * 4)
             cost_k = satd_k.to(F32) + lam_satd * (
                 bits_k + self._ref_cost(k, len(me)))
-            cur = (cost_k, mv_k, torch.full_like(satd_k, k), satd_k, bits_k)
+            cur = (cost_k, mv_k, torch.full_like(satd_k, k), satd_k, bits_k,
+                   pred_k)
             if best is None:
                 best = cur
                 continue
@@ -375,14 +415,15 @@ class MdInterPipeline(MdIntraPipeline):
         return back(lev), back(r2)
 
     def _code_residual(self, resi, n: int, qp: int, is_luma: bool,
-                       tools: bool):
+                       tools: bool, quad: bool = False):
         """(levels, recon residual, rate) of a leaf's luma or chroma
-        residual: four forced-split TUs at 64 luma / 32 chroma, else one
-        TU, each with the zero-cbf competition. tools: as in
-        _transform_quant (the search quantises plainly, the
-        reconstruction with the configured tools)."""
+        residual: four forced-split TUs at 64 luma / 32 chroma and with
+        quad (the SMP CUs' interSplitFlag), else one TU, each with the
+        zero-cbf competition. tools: as in _transform_quant (the search
+        quantises plainly, the reconstruction with the configured
+        tools)."""
         rate_fn = self._tu_rate_y if is_luma else self._tu_rate_c
-        if n == 32 + 32 * is_luma:
+        if quad or n == 32 + 32 * is_luma:
             levels, r2 = self._tq_quad(resi, qp, is_luma, tools)
             L, hn = levels.shape[0], n // 2
             lv4 = levels.reshape(L, 2, hn, 2, hn).transpose(2, 3) \
@@ -407,18 +448,14 @@ class MdInterPipeline(MdIntraPipeline):
         nb = rows * cols
         bid = self._arange(nb)
         lam_satd = torch.sqrt(lam)
-        mv0, r0, satd0, bits0 = self._pick_ref_me(me0, lam_satd)
-        mv1, r1, satd1, bits1 = self._pick_ref_me(me1, lam_satd)
+        mv0, r0, satd0, bits0, _ = self._pick_ref_me(me0, lam_satd)
+        mv1, r1, satd1, bits1, _ = self._pick_ref_me(me1, lam_satd)
         (_, _, satd_bi), _ = self._eval_pairs(
             l0_y, l1_y, blocks, mv0[:, None], mv1[:, None], r0[:, None],
             r1[:, None], n)
         satd_bi = satd_bi[:, 0]
         nl0, nl1 = l0_y.shape[0], l1_y.shape[0]
-
-        def refb(r, nl):
-            return sum(torch.where(r == k, self._ref_cost(k, nl), 0.0)
-                       for k in range(nl))
-
+        refb = self._ref_bits
         idc_u = self.dpc[self.DPC_IDC_UNI]
         idc_b = self.dpc[self.DPC_IDC_BI]
         c0 = satd0.to(F32) + lam_satd * (bits0 + refb(r0, nl0) + idc_u)
@@ -505,16 +542,9 @@ class MdInterPipeline(MdIntraPipeline):
                         d[self.DPC_SKIP] + merge_delta),
             amvp_bits)
         cost = dist + lam * (rate + mode_bits) + ccost
-        # with no residual anywhere the writer codes no cbf flags at all:
-        # refund the cbf-0 prices the TU rates charged
-        if n == 64:
-            refund = (4.0 * d[self.DPC_CBF_Y0_D1]
-                      + 8.0 * d[self.DPC_CBF_C0_D1])
-        else:
-            refund = d[self.DPC_CBF_Y0] + 2.0 * d[self.DPC_CBF_C0]
-        cost = cost - lam * torch.where(cbf_any, 0.0, refund)
-        return (mv0, r0, mv1, r1, dirn, cost, pred_y, cpreds[0],
-                cpreds[1])
+        return (mv0, r0, mv1, r1, dirn,
+                cost - lam * self._cbf_refund(cbf_any, n), pred_y,
+                cpreds[0], cpreds[1])
 
     def _partition_inter_b(self, src_y, src_cb, src_cr, l0, l1):
         """B-slice quadtree DP: per-size inter-B vs intra competition,
@@ -558,6 +588,415 @@ class MdInterPipeline(MdIntraPipeline):
                 sel8("dir").to(I32), sel8("mv", 2).to(I32),
                 sel8("ref").to(I32), sel8("mvb", 2).to(I32),
                 sel8("refb").to(I32), leaf_preds)
+
+    # ------------------------------------------------------------------
+    # P slices: one reference stack, merge alignment, SMP/AMP
+    # ------------------------------------------------------------------
+
+    def _eval_p(self, refs_y, blocks, mvs, refsel, n: int,
+                want_satd: bool = True, want_pred: bool = False):
+        """Exact evaluation of K single-list candidates per block in one
+        me_eval launch (its one-list mode): mvs [L, K, 2] qpel on the
+        pictures refsel [L, K] of the stack refs_y [R, H, W]. Returns
+        (satd [L, K] or None, 14-bit prediction [L, n, n] of candidate 0
+        or None)."""
+        satd, pred = me_eval(refs_y.contiguous(), None, blocks.contiguous(),
+                             mvs.to(I32).contiguous(), None,
+                             refsel.to(I32).contiguous(), None, n=n,
+                             cols=self.w // n, maxv=self.maxv,
+                             want_satd=want_satd, want_pred=want_pred)
+        return (None if satd is None else satd[0],
+                None if pred is None else pred[0])
+
+    def _region_cand(self, mvg, refg, rows: int, cols: int, n: int):
+        """Per-CTB broadcast candidate: every block of a CTB offers the
+        motion of the CTB's top-left block. Returns (mvs, refs, (rows of
+        the corners, their columns))."""
+        k = max(1, self.CTB // n)
+        ri = (self._arange(rows) // k) * k
+        ci = (self._arange(cols) // k) * k
+        return (mvg[ri[:, None], ci[None, :]], refg[ri[:, None], ci[None, :]],
+                (ri, ci))
+
+    @staticmethod
+    def _global_mv(field):
+        """Dominant full-pel MV of a coarse field: the per-component
+        median, an even count taking the mean of the two middle values in
+        float32 truncated toward zero (jnp.median, then astype int32)."""
+        f = field.reshape(-1, 2).sort(dim=0).values
+        m = f.shape[0]
+        mid = (f[(m - 1) // 2] + f[m // 2]).to(F32) * 0.5
+        return mid.to(I32)
+
+    def _merge_align_p(self, refs_y, blocks, rows: int, cols: int, n: int,
+                       mv_q, ref, satd, mv_bits, pred_y, lam_satd):
+        """Merge-aware alignment: adopt a neighbour / CTB-corner / global
+        / zero merge candidate when its SATD plus bins beat the AMVP
+        winner. Chain-safe: a block adopts a neighbour's motion only when
+        that neighbour keeps its own. Returns (mv_q, ref, mv_bits,
+        pred_y, use_merge, merge_delta)."""
+        nb = rows * cols
+        mvg = mv_q.reshape(rows, cols, 2)
+        refg = ref.reshape(rows, cols)
+        ci = self._arange(cols)[None, :].expand(rows, cols).reshape(-1)
+        ri = self._arange(rows)[:, None].expand(rows, cols).reshape(-1)
+        mvS, refS, (rS, cS) = self._region_cand(mvg, refg, rows, cols, n)
+        gmv = self._global_mv(self._merge_field0) * 4
+        ones = torch.ones((nb,), dtype=torch.bool, device=self.device)
+        zref = torch.zeros((nb,), dtype=I32, device=self.device)
+        cands = (
+            (self._left_of(mvg).reshape(-1, 2),
+             self._left_of(refg).reshape(-1), ci > 0),
+            (self._top_of(mvg).reshape(-1, 2),
+             self._top_of(refg).reshape(-1), ri > 0),
+            (mvS.reshape(-1, 2), refS.reshape(-1), ones),
+            (gmv.expand(nb, 2), zref, ones),
+            (torch.zeros((nb, 2), dtype=I32, device=self.device), zref,
+             ones))
+        s_all, _ = self._eval_p(
+            refs_y, blocks, torch.stack([c[0] for c in cands], dim=1),
+            torch.stack([c[1] for c in cands], dim=1), n)
+        best = None
+        for c, (cmv, cref, valid) in enumerate(cands):
+            cost_c = s_all[:, c].to(F32) + lam_satd * (
+                self.dpc[self.DPC_MERGE] + self.MERGE_DELTAS_P[c])
+            cost_c = torch.where(valid, cost_c, 1e18)
+            cur = (cost_c, cmv, cref,
+                   torch.full((nb,), c, dtype=I32, device=self.device))
+            if best is None:
+                best = cur
+                continue
+            better = cost_c < best[0]
+            best = tuple(torch.where(
+                better.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                for a, b in zip(cur, best))
+        mcost, mmv, mref, mpick = best
+        acost = satd.to(F32) + lam_satd * (
+            self.dpc[self.DPC_AMVP] + mv_bits
+            + self._ref_bits(ref, self.n_refs))
+        use = mcost < acost
+
+        def changed_by(use):
+            return use & ((mmv != mv_q).any(dim=-1) | (mref != ref))
+        chg = changed_by(use).reshape(rows, cols)
+        srcL = self._left_of(chg, fill=False).reshape(-1)
+        srcT = self._top_of(chg, fill=False).reshape(-1)
+        srcC = chg[rS[:, None], cS[None, :]].reshape(-1)
+        use = use & ~(((mpick == 0) & srcL) | ((mpick == 1) & srcT)
+                      | ((mpick == 2) & srcC))
+        changed = changed_by(use)
+        mv_f = torch.where(use[:, None], mmv, mv_q)
+        ref_f = torch.where(use, mref, ref)
+        delta = sum(torch.where(mpick == c, d, 0.0).to(F32)
+                    for c, d in enumerate(self.MERGE_DELTAS_P))
+        _, v = self._eval_p(refs_y, blocks, mv_f[:, None], ref_f[:, None],
+                            n, want_satd=False, want_pred=True)
+        pred_f = torch.where(changed[:, None, None], self._uni_round(v),
+                             pred_y)
+        return (mv_f, ref_f, torch.where(use, 0.0, mv_bits), pred_f, use,
+                delta)
+
+    def _inter_leaf_p(self, src_y, src_cb, src_cr, refs, n: int, me):
+        """Best P-slice inter candidate per aligned n-block across the
+        stack refs = (y, cb, cr) [R, ...]: the SATD-best picture and MV of
+        the me_refine results, merge alignment, then one exact RD cost of
+        the winner (three-tier skip / merge / AMVP price) for the DP.
+        Returns (mv, ref, cost, pred_y, pred_cb, pred_cr)."""
+        lam = self.lam
+        refs_y, refs_cb, refs_cr = refs
+        blocks = self._blocks(src_y, n)
+        rows, cols = self.h // n, self.w // n
+        bid = self._arange(rows * cols)
+        lam_satd = torch.sqrt(lam)
+        mv_q, ref, satd, mv_bits, pred_y = self._pick_ref_me(me, lam_satd)
+        (mv_q, ref, mv_bits, pred_y, use_merge,
+         merge_delta) = self._merge_align_p(refs_y, blocks, rows, cols, n,
+                                            mv_q, ref, satd, mv_bits,
+                                            pred_y, lam_satd)
+        resi = blocks - pred_y
+        levels, r2, rate = self._code_residual(resi, n, self.qp_y, True,
+                                               tools=False)
+        dist = self._sqsum(resi - r2)
+        cbf_any = (levels != 0).any(dim=-1).any(dim=-1)
+        nc = n // 2
+        cy0 = (bid // cols) * nc
+        cx0 = (bid % cols) * nc
+        ccost = torch.zeros_like(dist)
+        cpreds = []
+        for srcp, planes in ((src_cb, refs_cb), (src_cr, refs_cr)):
+            cpred = self._mc_chroma_sel(planes, ref, mv_q, cy0, cx0, nc)
+            cpreds.append(cpred)
+            cresi = self._blocks(srcp, nc) - cpred
+            clev, cr2, crate = self._code_residual(cresi, nc, self.qp_c,
+                                                   False, tools=False)
+            cdist = self._sqsum(cresi - cr2)
+            cbf_any = cbf_any | (clev != 0).any(dim=-1).any(dim=-1)
+            ccost = ccost + cdist + lam * crate
+        d = self.dpc
+        amvp_bits = (d[self.DPC_AMVP] + mv_bits
+                     + self._ref_bits(ref, self.n_refs)
+                     + torch.where(cbf_any, d[self.DPC_RQT1],
+                                   d[self.DPC_RQT0]))
+        mode_bits = torch.where(
+            use_merge,
+            torch.where(cbf_any,
+                        d[self.DPC_MERGE] + merge_delta + d[self.DPC_RQT1],
+                        d[self.DPC_SKIP] + merge_delta),
+            amvp_bits)
+        cost = dist + lam * (rate + mode_bits) + ccost
+        return (mv_q, ref, cost - lam * self._cbf_refund(cbf_any, n),
+                pred_y, cpreds[0], cpreds[1])
+
+    def _cbf_refund(self, cbf_any, n: int):
+        """With no residual anywhere the writer codes no cbf flags at all
+        (skip, or AMVP with rqt_root_cbf 0): the cbf-0 prices that the TU
+        rates of an n-leaf charged, where cbf_any is false."""
+        d = self.dpc
+        if n == 64:
+            refund = (4.0 * d[self.DPC_CBF_Y0_D1]
+                      + 8.0 * d[self.DPC_CBF_C0_D1])
+        else:
+            refund = d[self.DPC_CBF_Y0] + 2.0 * d[self.DPC_CBF_C0]
+        return torch.where(cbf_any, 0.0, refund)
+
+    # -- SMP/AMP: the per-PU search (plain PyTorch, as the reference's is
+    #    outside any kernel) ---------------------------------------------
+
+    def _refine_int(self, blocks, ref_y, y0, x0, cands):
+        """+-REFINE integer SAD sweep around each candidate (clamped to
+        +-MV_CLAMP) for [L, nh, nw] blocks at (y0, x0) on the plane ref_y:
+        the first minimum in (candidate, dy, dx) order, which is the
+        reference's strict-< scan (no MV-cost prior on this path).
+        Returns (mv [L, 2], sad [L])."""
+        W = REFINE
+        L, nh, nw = blocks.shape
+        sads, mvs = [], []
+        for k in range(cands.shape[1]):
+            mvk = cands[:, k].clamp(-MV_CLAMP, MV_CLAMP)
+            win = clamped_window(ref_y, y0 + mvk[:, 1] - W,
+                                 x0 + mvk[:, 0] - W, nh + 2 * W, nw + 2 * W)
+            # [L, dy, dx, nh, nw] views of the 49 displaced blocks
+            sh = win.unfold(1, nh, 1).unfold(2, nw, 1)
+            sads.append((sh - blocks[:, None, None]).abs()
+                        .sum(dim=(-1, -2), dtype=I32).reshape(L, -1))
+            mvs.append(mvk)
+        sad, pos = torch.cat(sads, dim=1).min(dim=1)
+        k, o = pos // 49, pos % 49
+        base = torch.stack(mvs, dim=1)[self._arange(L), k]
+        return base + torch.stack([o % 7 - W, o // 7 - W], dim=1).to(I32), sad
+
+    def _refine_subpel(self, blocks, ref_y, y0, x0, mv_int):
+        """Half- then quarter-pel SATD refinement of [L, nh, nw] blocks
+        around mv_int (clamped to +-MV_CLAMP): each step tries the eight
+        neighbours of the current best in a fixed order, strict <.
+        Returns (mv qpel [L, 2], satd [L])."""
+        nh, nw = blocks.shape[-2:]
+
+        def cost(mv):
+            return satd_tiles(blocks - mc_luma_plain(
+                ref_y, mv, y0, x0, nw, maxv=self.maxv, nh=nh))
+        mv = mv_int.clamp(-MV_CLAMP, MV_CLAMP) * 4
+        best = cost(mv)
+        for step in (2, 1):
+            for dx, dy in ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1),
+                           (1, -1), (-1, 1), (1, 1)):
+                cand = mv + torch.tensor([dx * step, dy * step], dtype=I32,
+                                         device=self.device)
+                c = cost(cand)
+                better = c < best
+                mv = torch.where(better[:, None], cand, mv)
+                best = torch.where(better, c, best)
+        return mv, best
+
+    def _best_uni_leaf(self, blocks, refs_y, y0, x0, cands_list):
+        """SATD-best (mv qpel [L, 2], ref [L], satd [L], mv bits [L])
+        across the stack refs_y for [L, nh, nw] blocks: per picture k the
+        integer then sub-pel refinement around the candidates
+        cands_list[k] [L, K, 2], priced with the MVD bins (candidate 0 as
+        the predictor) and the ref_idx bits of a list of the stack's
+        depth; strict < in stack order."""
+        lam_satd = torch.sqrt(self.lam)
+        R = refs_y.shape[0]
+        best = None
+        for k in range(R):
+            cands = cands_list[k]
+            mv_int, _ = self._refine_int(blocks, refs_y[k], y0, x0, cands)
+            mv_q, satd = self._refine_subpel(blocks, refs_y[k], y0, x0,
+                                             mv_int)
+            bits = self._mv_bins(mv_q - cands[:, 0] * 4)
+            cost = satd.to(F32) + lam_satd * (bits + self._ref_cost(k, R))
+            cur = (cost, mv_q, torch.full_like(satd, k), bits, satd)
+            if best is None:
+                best = cur
+                continue
+            better = cost < best[0]
+            best = tuple(torch.where(
+                better.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                for a, b in zip(cur, best))
+        return best[1], best[2], best[4], best[3]
+
+    def _part_mode_bits(self, part_id: int):
+        """part_mode fractional bits of an inter CU above the minimum CB
+        size (the decoder's binarization)."""
+        d = self.dpc
+        bits = d[self.DPC_PART0_0]
+        bits = bits + (d[self.DPC_PART1_1] if part_id in (1, 3, 4)
+                       else d[self.DPC_PART1_0])
+        if self.amp:
+            bits = bits + (d[self.DPC_PART3_1] if part_id in (1, 2)
+                           else d[self.DPC_PART3_0] + 1.0)
+        return bits
+
+    def _smp_leaf(self, src_y, src_cb, src_cr, refs, fields, n: int):
+        """Best rectangular-PU candidate per aligned n-block: for each
+        part mode (2NxN, Nx2N, and at 32 with AMP the four asymmetric
+        ones), per-PU ME from the CU's coarse-field candidates, the exact
+        CU prediction, the forced four-TU split T/Q on all three planes
+        (interSplitFlag) and the RD cost with the mode's price. Returns
+        (part [L], mv_a, ref_a, mv_b, ref_b, cost [L])."""
+        lam = self.lam
+        refs_y, refs_cb, refs_cr = refs
+        blocks = self._blocks(src_y, n)
+        rows, cols = self.h // n, self.w // n
+        nb = rows * cols
+        bid = self._arange(nb)
+        y0, x0 = (bid // cols) * n, (bid % cols) * n
+        cands_list = [self._me_cands(f16, n) for f16 in fields]
+        cb_blocks = self._blocks(src_cb, n // 2)
+        cr_blocks = self._blocks(src_cr, n // 2)
+        d = self.dpc
+        hn = n // 2
+        modes = [1, 2] + ([3, 4, 5, 6] if self.amp and n == 32 else [])
+        best = None
+        for pid in modes:
+            pred_y = torch.zeros_like(blocks)
+            pred_c = [torch.zeros_like(cb_blocks), torch.zeros_like(cr_blocks)]
+            pu_bits = torch.zeros((nb,), dtype=F32, device=self.device)
+            mvs, refsel = [], []
+            for (dy, dx, ph, pw) in self.PART_GEOM[pid](n):
+                mv_q, ref, _, mv_bits = self._best_uni_leaf(
+                    blocks[:, dy:dy + ph, dx:dx + pw], refs_y, y0 + dy,
+                    x0 + dx, cands_list)
+                mvs.append(mv_q)
+                refsel.append(ref)
+                pu_bits = pu_bits + mv_bits + self._ref_bits(ref, self.n_refs)
+                pred_y[:, dy:dy + ph, dx:dx + pw] = mc_luma_plain(
+                    refs_y, mv_q, y0 + dy, x0 + dx, pw, maxv=self.maxv,
+                    sel=ref, nh=ph)
+                for pc, planes in zip(pred_c, (refs_cb, refs_cr)):
+                    pc[:, dy // 2:(dy + ph) // 2, dx // 2:(dx + pw) // 2] = \
+                        self._mc_chroma_sel(planes, ref, mv_q, (y0 + dy) // 2,
+                                            (x0 + dx) // 2, pw // 2,
+                                            nch=ph // 2)
+            resi = blocks - pred_y
+            levels, r2, rate = self._code_residual(resi, n, self.qp_y, True,
+                                                   tools=False, quad=True)
+            cost = self._sqsum(resi - r2) + lam * rate
+            for cblocks, cpred in zip((cb_blocks, cr_blocks), pred_c):
+                cresi = cblocks - cpred
+                _, cr2, crate = self._code_residual(cresi, hn, self.qp_c,
+                                                    False, tools=False,
+                                                    quad=True)
+                cost = cost + self._sqsum(cresi - cr2) + lam * crate
+            mode_bits = (d[self.DPC_AMVP] - d[self.DPC_PART_2NX2N]
+                         + self._part_mode_bits(pid) + d[self.DPC_PU_EXTRA]
+                         + pu_bits + d[self.DPC_RQT1])
+            cost = cost + lam * mode_bits
+            cur = (torch.full((nb,), pid, dtype=I32, device=self.device),
+                   mvs[0], refsel[0], mvs[1], refsel[1], cost)
+            if best is None:
+                best = cur
+                continue
+            better = cost < best[5]
+            best = tuple(torch.where(
+                better.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                for a, b in zip(cur, best))
+        return best
+
+    def _partition_inter_p(self, src_y, src_cb, src_cr, refs):
+        """P-slice quadtree DP: per size the inter leaf (and with SMP the
+        rectangular PUs at 16 and 32) against intra, then the bottom-up
+        split DP. Returns (size_map8, mode_map8, inter8, mv8, ref8, part8
+        or None, leaf_preds); with SMP, mv8/ref8 carry each cell's own
+        PU's motion."""
+        lam = self.lam
+        refs_y = refs[0]
+        big = 1e18
+        fields = [self._coarse_field(src_y, r) for r in refs_y]
+        # the global-MV merge candidate's field
+        self._merge_field0 = fields[0]
+        me_all = self._me_sizes(src_y, refs_y, fields)
+        leaf_preds = {}
+        per_size = {}
+        for n in (8, 16, 32, 64):
+            mv_q, ref, ecost, p_y, p_cb, p_cr = self._inter_leaf_p(
+                src_y, src_cb, src_cr, refs, n, me_all[n])
+            leaf_preds[n] = (p_y, p_cb, p_cr)
+            if not self.allow_inter[n]:
+                ecost = ecost + big
+            nb = ref.shape[0]
+            if n == 64:
+                # 64 leaves are inter only
+                use_inter = torch.ones((nb,), dtype=torch.bool,
+                                       device=self.device)
+                per_size[n] = dict(modes=torch.ones((nb,), dtype=I32,
+                                                    device=self.device),
+                                   mv=mv_q, ref=ref, inter=use_inter,
+                                   cost=ecost)
+            else:
+                imodes, icost = self._leaf_rd(src_y, src_cb, src_cr, n)
+                # intra CUs in P slices also code cu_skip=0 +
+                # pred_mode=1, and part_mode at min CB size
+                icost = icost + lam * self.dpc[self.DPC_INTRA_PM]
+                if n == 8:
+                    icost = icost + lam * self.dpc[self.DPC_PART_2NX2N]
+                use_inter = ecost < icost
+                per_size[n] = dict(modes=imodes, mv=mv_q, ref=ref,
+                                   inter=use_inter,
+                                   cost=torch.where(use_inter, ecost, icost))
+            if not self.smp:
+                continue
+            zero = torch.zeros((nb,), dtype=I32, device=self.device)
+            per_size[n].update(part=zero, mv_pu1=torch.zeros_like(mv_q),
+                               ref_pu1=zero)
+            if n in (16, 32):
+                # rectangular PUs compete with 2Nx2N and intra
+                part, mva, refa, mvb, refb, scost = self._smp_leaf(
+                    src_y, src_cb, src_cr, refs, fields, n)
+                if not self.allow_inter[n]:
+                    scost = scost + big
+                ps = per_size[n]
+                better = scost < ps["cost"]
+                b2 = better[:, None]
+                ps.update(part=torch.where(better, part, 0),
+                          mv=torch.where(b2, mva, ps["mv"]),
+                          ref=torch.where(better, refa, ps["ref"]),
+                          mv_pu1=torch.where(b2, mvb, 0),
+                          ref_pu1=torch.where(better, refb, 0),
+                          inter=ps["inter"] | better,
+                          cost=torch.where(better, scost, ps["cost"]))
+        size_map8 = self._dp_merge(per_size)
+        sel8 = self._sel8_fn(per_size, size_map8)
+        inter8 = sel8("inter")
+        mv8 = sel8("mv", 2).to(I32)
+        ref8 = sel8("ref").to(I32)
+        part8 = None
+        if self.smp:
+            part8 = torch.where(inter8, sel8("part").to(I32), 0)
+            # cells of the second PU take its motion, by part geometry
+            k8 = (size_map8 >> 3).clamp(min=1)
+            rr = self._arange(self.r8)[:, None] % k8
+            cc = self._arange(self.c8)[None, :] % k8
+            h2, q4 = k8 >> 1, k8 >> 2
+            pu1 = (((part8 == 1) & (rr >= h2)) | ((part8 == 2) & (cc >= h2))
+                   | ((part8 == 3) & (rr >= q4))
+                   | ((part8 == 4) & (rr >= k8 - q4))
+                   | ((part8 == 5) & (cc >= q4))
+                   | ((part8 == 6) & (cc >= k8 - q4)))
+            mv8 = torch.where(pu1[..., None], sel8("mv_pu1", 2).to(I32), mv8)
+            ref8 = torch.where(pu1, sel8("ref_pu1").to(I32), ref8)
+        return (size_map8, sel8("modes").to(I32), inter8, mv8, ref8, part8,
+                leaf_preds)
 
     def _dp_merge(self, per_size):
         """Bottom-up split DP over per-size leaf costs -> size_map8."""
@@ -613,15 +1052,20 @@ class MdInterPipeline(MdIntraPipeline):
     # ------------------------------------------------------------------
 
     def _inter_recon_batch(self, src_y, src_cb, src_cr, size_map8, inter8,
-                           preds):
+                           preds, part8=None, refs=None, mv8=None,
+                           ref8=None):
         """Reconstruct every inter leaf of every size in one batch from
-        the DP leaves' final predictions. Returns (luma [2,Hp,Wp],
-        chroma [4,Hc,Wc], written8)."""
+        the DP leaves' final predictions; with part8 (P slices with SMP)
+        the SMP CUs then reconstruct from the cell maps mv8/ref8 on the
+        stack refs (_smp_recon). Returns (luma [2,Hp,Wp], chroma
+        [4,Hc,Wc], written8)."""
         luma, chroma, written = self._new_planes()
         for n in (8, 16, 32, 64):
             k = n // 8
             rows, cols = self.h // n, self.w // n
             is_leaf = (size_map8[::k, ::k] == n) & inter8[::k, ::k]
+            if part8 is not None:
+                is_leaf = is_leaf & (part8[::k, ::k] == 0)
             mask = is_leaf.reshape(-1)
             bid = self._arange(rows * cols)
             y0, x0 = (bid // cols) * n, (bid % cols) * n
@@ -646,15 +1090,72 @@ class MdInterPipeline(MdIntraPipeline):
                 self._put(chroma[2 + ci], y0 // 2, x0 // 2, nc,
                           torch.where(ccbf, clev, 0), mask)
             written |= rep2(is_leaf, k)
+        if part8 is not None:
+            written |= self._smp_recon(src_y, src_cb, src_cr, size_map8,
+                                       inter8, part8, refs, mv8, ref8, luma,
+                                       chroma)
         return luma, chroma, written
+
+    def _smp_recon(self, src_y, src_cb, src_cr, size_map8, inter8, part8,
+                   refs, mv8, ref8, luma, chroma):
+        """Reconstruct the SMP/AMP CUs into the planes, in place: every
+        8x8 luma / 4x4 chroma cell predicts with its own PU's motion
+        (translation is pointwise, so this equals whole-PU MC), then the
+        forced-split T/Q per CU. Returns the cells written."""
+        refs_y, refs_cb, refs_cr = refs
+        written = torch.zeros_like(inter8)
+        for n in (16, 32):
+            k = n // 8
+            rows, cols = self.h // n, self.w // n
+            nb = rows * cols
+            is_smp = ((size_map8[::k, ::k] == n) & inter8[::k, ::k]
+                      & (part8[::k, ::k] != 0))
+            mask = is_smp.reshape(-1)
+            bid = self._arange(nb)
+            y0, x0 = (bid // cols) * n, (bid % cols) * n
+
+            def cu_cells(m8):
+                # [r8, c8, ...] -> per-CU cells in raster order [nb*k*k, ...]
+                v = m8.reshape(rows, k, cols, k, *m8.shape[2:])
+                return v.transpose(1, 2).reshape(nb * k * k, *m8.shape[2:])
+
+            def cells_to_cu(p, cell):
+                return p.reshape(nb, k, k, cell, cell).transpose(2, 3) \
+                    .reshape(nb, k * cell, k * cell)
+            mvc, refc = cu_cells(mv8), cu_cells(ref8)
+            ar = self._arange(k * k)
+            y0c = (y0[:, None] + (ar // k * 8)[None, :]).reshape(-1)
+            x0c = (x0[:, None] + (ar % k * 8)[None, :]).reshape(-1)
+            pred_y = cells_to_cu(mc_luma_plain(refs_y, mvc, y0c, x0c, 8,
+                                               maxv=self.maxv, sel=refc), 8)
+            resi = self._blocks(src_y, n) - pred_y
+            levels, r2 = self._tq_quad(resi, self.qp_y, True, tools=True)
+            self._put(luma[0], y0, x0, n,
+                      (pred_y + r2).clamp(0, self.maxv), mask)
+            self._put(luma[1], y0, x0, n, levels, mask)
+            nc = n // 2
+            for ci, (srcp, planes) in enumerate(((src_cb, refs_cb),
+                                                 (src_cr, refs_cr))):
+                cpred = cells_to_cu(self._mc_chroma_sel(
+                    planes, refc, mvc, y0c // 2, x0c // 2, 4), 4)
+                cresi = self._blocks(srcp, nc) - cpred
+                clev, cr2 = self._tq_quad(cresi, self.qp_c, False,
+                                          tools=True)
+                self._put(chroma[ci], y0 // 2, x0 // 2, nc,
+                          (cpred + cr2).clamp(0, self.maxv), mask)
+                self._put(chroma[2 + ci], y0 // 2, x0 // 2, nc, clev, mask)
+            written |= rep2(is_smp, k)
+        return written
 
     # ------------------------------------------------------------------
     # deblocking boundary strengths from decision maps (spec 8.7.2.4)
     # ------------------------------------------------------------------
 
-    def _edge_maps_inter_b(self, size_map8, inter8, dir8, mv8, mv8b,
-                           poc8_0, poc8_1, nz8):
-        """Deblocking BS for B slices (the full two-list rule)."""
+    def _cu_edges(self, size_map8, part8=None):
+        """(vertical, horizontal) edge maps of the 8-cell grid: CU edges,
+        the internal TU32 edges of 64 CUs (forced transform split) and,
+        with part8, the SMP CUs' half-CU TU edges and the asymmetric PU
+        edges at quarter offsets."""
         k = size_map8 >> 3
         c = self._arange(self.c8)[None, :]
         r = self._arange(self.r8)[:, None]
@@ -662,6 +1163,56 @@ class MdInterPipeline(MdIntraPipeline):
         hor_edge = ((r & (k - 1)) == 0) & (r > 0)
         ver_edge = ver_edge | ((size_map8 == 64) & ((c & 7) == 4))
         hor_edge = hor_edge | ((size_map8 == 64) & ((r & 7) == 4))
+        if part8 is not None:
+            smp = part8 != 0
+            h2, q4 = k >> 1, k >> 2
+            co, ro = c % k, r % k
+            ver_edge = ver_edge | (smp & (co == h2) & (h2 > 0))
+            hor_edge = hor_edge | (smp & (ro == h2) & (h2 > 0))
+            hor_edge = hor_edge | ((part8 == 3) & (ro == q4) & (q4 > 0))
+            hor_edge = hor_edge | ((part8 == 4) & (ro == k - q4))
+            ver_edge = ver_edge | ((part8 == 5) & (co == q4) & (q4 > 0))
+            ver_edge = ver_edge | ((part8 == 6) & (co == k - q4))
+        return ver_edge, hor_edge
+
+    @staticmethod
+    def _bs_grid(ver_edge, hor_edge, maps, bs):
+        """Boundary strengths of the edges from the per-cell maps: bs(cur,
+        nb) of every cell and its left / top neighbour (zero-filled at
+        the picture's border), expanded to the deblocking grid (ver
+        [H/4, W/8], hor [H/8, W/4])."""
+        def shift_left(v):
+            return torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
+
+        def shift_up(v):
+            return torch.cat([torch.zeros_like(v[:1]), v[:-1]], dim=0)
+
+        left = {kk: shift_left(v) for kk, v in maps.items()}
+        up = {kk: shift_up(v) for kk, v in maps.items()}
+        bs_v8 = torch.where(ver_edge, bs(maps, left), 0)
+        bs_h8 = torch.where(hor_edge, bs(maps, up), 0)
+        return (bs_v8.repeat_interleave(2, 0).to(I32),
+                bs_h8.repeat_interleave(2, 1).to(I32))
+
+    def _edge_maps_inter(self, size_map8, inter8, mv8, ref_poc8, nz8,
+                         part8=None):
+        """Deblocking BS for P slices: 2 across intra, 1 across a coded
+        TU, a change of reference picture or an MV step of a pel or
+        more."""
+        def bs(cur, nb):
+            dmv = ((cur["mvx"] - nb["mvx"]).abs() >= 4) | \
+                ((cur["mvy"] - nb["mvy"]).abs() >= 4)
+            one = cur["nz"] | nb["nz"] | (cur["poc"] != nb["poc"]) | dmv
+            return torch.where(cur["intra"] | nb["intra"], 2,
+                               torch.where(one, 1, 0))
+        maps = dict(intra=~inter8, nz=nz8, poc=ref_poc8, mvx=mv8[:, :, 0],
+                    mvy=mv8[:, :, 1])
+        return self._bs_grid(*self._cu_edges(size_map8, part8), maps, bs)
+
+    def _edge_maps_inter_b(self, size_map8, inter8, dir8, mv8, mv8b,
+                           poc8_0, poc8_1, nz8):
+        """Deblocking BS for B slices (the full two-list rule)."""
+        ver_edge, hor_edge = self._cu_edges(size_map8)
         use0 = inter8 & ((dir8 & 1) != 0)
         use1 = inter8 & ((dir8 & 2) != 0)
         maps = dict(
@@ -673,12 +1224,6 @@ class MdInterPipeline(MdIntraPipeline):
             m1x=torch.where(use1, mv8b[:, :, 0], 0),
             m1y=torch.where(use1, mv8b[:, :, 1], 0),
             cnt=use0.to(I32) + use1.to(I32))
-
-        def shift_left(v):
-            return torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
-
-        def shift_up(v):
-            return torch.cat([torch.zeros_like(v[:1]), v[:-1]], dim=0)
 
         def bs(cur, nb):
             def far(ax, ay, bx, by):
@@ -693,15 +1238,9 @@ class MdInterPipeline(MdIntraPipeline):
             one = cur["nz"] | nb["nz"] | (cur["cnt"] != nb["cnt"]) | ~ok
             return torch.where(cur["intra"] | nb["intra"], 2,
                                torch.where(one, 1, 0))
+        return self._bs_grid(ver_edge, hor_edge, maps, bs)
 
-        left = {kk: shift_left(v) for kk, v in maps.items()}
-        up = {kk: shift_up(v) for kk, v in maps.items()}
-        bs_v8 = torch.where(ver_edge, bs(maps, left), 0)
-        bs_h8 = torch.where(hor_edge, bs(maps, up), 0)
-        return (bs_v8.repeat_interleave(2, 0).to(I32),
-                bs_h8.repeat_interleave(2, 1).to(I32))
-
-    def _nz8(self, lvl_y, size_map8):
+    def _nz8(self, lvl_y, size_map8, part8=None):
         """Per-8-cell luma-TU cbf map (any nonzero level in the TU)."""
         nz8 = torch.zeros((self.r8, self.c8), dtype=torch.bool,
                           device=self.device)
@@ -712,11 +1251,52 @@ class MdInterPipeline(MdIntraPipeline):
             blk = cell_any.reshape(self.r8 // kk, kk, self.c8 // kk, kk) \
                 .any(dim=3).any(dim=1)
             nz8 = torch.where(size_map8 == s, rep2(blk, kk), nz8)
+        if part8 is not None:
+            # SMP CUs carry four half-size TUs: cbf at TU granularity
+            smp = part8 != 0
+            nz8 = torch.where(smp & (size_map8 == 16), cell_any, nz8)
+            blk2 = cell_any.reshape(self.r8 // 2, 2, self.c8 // 2, 2) \
+                .any(dim=3).any(dim=1)
+            nz8 = torch.where(smp & (size_map8 == 32), rep2(blk2, 2), nz8)
         return nz8
 
     # ------------------------------------------------------------------
     # full frame
     # ------------------------------------------------------------------
+
+    def _inter_full_impl(self, src_y_u8, src_cb_u8, src_cr_u8, refs,
+                         ref_pocs) -> dict:
+        """P frame: refs = (y, cb, cr) stacks [R, ...], ref_pocs [R]."""
+        src_y = src_y_u8.to(I32)
+        src_cb = src_cb_u8.to(I32)
+        src_cr = src_cr_u8.to(I32)
+        refs = tuple(p.to(I32) for p in refs)
+        (size_map8, mode_map8, inter8, mv8, ref8, part8,
+         leaf_preds) = self._partition_inter_p(src_y, src_cb, src_cr, refs)
+        init = self._inter_recon_batch(src_y, src_cb, src_cr, size_map8,
+                                       inter8, leaf_preds, part8=part8,
+                                       refs=refs, mv8=mv8, ref8=ref8)
+        luma, chroma, _, n_waves = self._recon_md(
+            src_y, src_cb, src_cr, size_map8, mode_map8, init_state=init,
+            exclude8=init[2])
+        ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(luma,
+                                                                  chroma)
+        if self.deblock:
+            nz8 = self._nz8(lvl_y, size_map8, part8)
+            ref_poc8 = torch.where(inter8, ref_pocs[ref8.long()],
+                                   NO_REF_POC)
+            bs = self._edge_maps_inter(size_map8, inter8, mv8, ref_poc8,
+                                       nz8, part8)
+            ry, rcb, rcr = self._deblock(ry, rcb, rcr, *bs)
+        out = self._frame_outputs(ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr,
+                                  src_y, src_cb, src_cr)
+        out.update(size_map8=size_map8.to(torch.int8),
+                   mode_map8=mode_map8.to(torch.int8), inter8=inter8,
+                   mv8=mv8.to(torch.int16), ref8=ref8.to(torch.int8),
+                   n_waves=n_waves)
+        if part8 is not None:
+            out["part8"] = part8.to(torch.int8)
+        return out
 
     def _inter_full_b_impl(self, src_y_u8, src_cb_u8, src_cr_u8, l0, l1,
                            l0_pocs, l1_pocs) -> dict:
@@ -752,6 +1332,32 @@ class MdInterPipeline(MdIntraPipeline):
                    ref8b=ref8b.to(torch.int8), n_waves=n_waves)
         return out
 
+    def _stack(self, planes, depth: int):
+        """The newest-first reference planes (device tensors or numpy)
+        truncated or padded to depth by repeating the last, stacked on
+        the device."""
+        ps = list(planes)[:depth]
+        ps += ps[-1:] * (depth - len(ps))
+        return torch.stack([self._to_dev(p) for p in ps])
+
+    def _pocs(self, vals, depth: int):
+        vs = list(vals)[:depth]
+        vs += vs[-1:] * (depth - len(vs))
+        return torch.as_tensor(vs, dtype=I32, device=self.device)
+
+    @torch.inference_mode()
+    def submit_inter(self, src_y, src_cb, src_cr, refs_y, refs_cb, refs_cr,
+                     ref_pocs, qp: int | None = None) -> dict:
+        """P frame: refs_* lists of reference planes (device tensors or
+        numpy), newest first, truncated or padded to n_refs by repeating
+        the last (their POCs alike)."""
+        self.set_consts(self._consts_for(qp))
+        K = self.n_refs
+        return self._inter_full_impl(
+            self._to_dev(src_y), self._to_dev(src_cb), self._to_dev(src_cr),
+            tuple(self._stack(p, K) for p in (refs_y, refs_cb, refs_cr)),
+            self._pocs(ref_pocs, K))
+
     @torch.inference_mode()
     def submit_inter_b(self, src_y, src_cb, src_cr, l0, l1, l0_pocs,
                        l1_pocs, qp: int | None = None) -> dict:
@@ -761,18 +1367,8 @@ class MdInterPipeline(MdIntraPipeline):
         alike)."""
         self.set_consts(self._consts_for(qp))
         K = self.n_refs_b
-
-        def pad(vals):
-            vs = list(vals)[:K]
-            return vs + vs[-1:] * (K - len(vs))
-
-        def stack(planes):
-            return torch.stack([self._to_dev(p) for p in pad(planes)])
-
-        def pocs(vals):
-            return torch.as_tensor(pad(vals), dtype=I32, device=self.device)
-        s0 = tuple(stack(p) for p in l0)
-        s1 = s0 if l1 is l0 else tuple(stack(p) for p in l1)
+        s0 = tuple(self._stack(p, K) for p in l0)
+        s1 = s0 if l1 is l0 else tuple(self._stack(p, K) for p in l1)
         return self._inter_full_b_impl(
             self._to_dev(src_y), self._to_dev(src_cb), self._to_dev(src_cr),
-            s0, s1, pocs(l0_pocs), pocs(l1_pocs))
+            s0, s1, self._pocs(l0_pocs, K), self._pocs(l1_pocs, K))

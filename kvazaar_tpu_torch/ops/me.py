@@ -3,7 +3,7 @@
 Each function has a plain PyTorch version (`*_plain`, the arithmetic of
 the reference's XLA twins: `_me_xla_one`; `_eval_exact` for each list
 of a candidate pair, each on its own reference picture, then `_bi_avg`
-and `_satd_tiles` for the pair) and
+and `_satd_tiles` for the pair; or for the one list of a P candidate) and
 a wrapper that launches a hand-written CUDA kernel (csrc/me_refine.cu,
 csrc/me_eval.cu) on CUDA tensors. A CPU tensor takes the plain version;
 a CUDA tensor always takes the kernel.
@@ -74,9 +74,9 @@ def _block_origins(L: int, n: int, cols: int, device) -> tuple:
     return (bid // cols) * n, (bid % cols) * n
 
 
-def _window(ref: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
-            hh: int, ww: int, sel: torch.Tensor | None = None
-            ) -> torch.Tensor:
+def clamped_window(ref: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                   hh: int, ww: int, sel: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """[L, hh, ww] clamped window of ref starting at (ys, xs) [L]; ref is
     one plane [H, W], or a stack [R, H, W] with the plane of each block
     sel [L]."""
@@ -94,19 +94,20 @@ def _lf(device) -> torch.Tensor:
 
 def mc_luma_plain(ref: torch.Tensor, mv: torch.Tensor, y0: torch.Tensor,
                   x0: torch.Tensor, n: int, hi: bool = False,
-                  maxv: int = 255, sel: torch.Tensor | None = None
-                  ) -> torch.Tensor:
-    """Exact quarter-pel HEVC luma MC of [L, n, n] blocks at origins
-    (y0, x0) with per-block qpel mv [L, 2] on ref [H, W] (or on plane
-    sel [L] of a stack [R, H, W]); hi=True returns the 14-bit
-    intermediate for exact bi-prediction."""
-    win = _window(ref, y0 + (mv[:, 1] >> 2) - 3, x0 + (mv[:, 0] >> 2) - 3,
-                  n + 7, n + 7, sel)
+                  maxv: int = 255, sel: torch.Tensor | None = None,
+                  nh: int | None = None) -> torch.Tensor:
+    """Exact quarter-pel HEVC luma MC of [L, nh, n] blocks (nh = n when
+    None) at origins (y0, x0) with per-block qpel mv [L, 2] on ref [H, W]
+    (or on plane sel [L] of a stack [R, H, W]); hi=True returns the
+    14-bit intermediate for exact bi-prediction."""
+    nh = n if nh is None else nh
+    win = clamped_window(ref, y0 + (mv[:, 1] >> 2) - 3,
+                         x0 + (mv[:, 0] >> 2) - 3, nh + 7, n + 7, sel)
     f = _lf(ref.device)
     cx = f[mv[:, 0] & 3]
     cy = f[mv[:, 1] & 3]
     h14 = sum(cx[:, k, None, None] * win[:, :, k:k + n] for k in range(8))
-    v = sum(cy[:, k, None, None] * h14[:, k:k + n, :]
+    v = sum(cy[:, k, None, None] * h14[:, k:k + nh, :]
             for k in range(8)) >> 6
     if hi:
         return v
@@ -134,8 +135,8 @@ def me_refine_plain(ref, src_blocks, cands, lam64, n: int, cols: int,
     best_mv = torch.zeros((L, 2), dtype=torch.int32, device=dev)
     for k in range(K):
         mvk = cands[:, k].clamp(-MV_CLAMP, MV_CLAMP)
-        win = _window(ref, y0 + mvk[:, 1] - W, x0 + mvk[:, 0] - W,
-                      n + 2 * W, n + 2 * W)
+        win = clamped_window(ref, y0 + mvk[:, 1] - W, x0 + mvk[:, 0] - W,
+                             n + 2 * W, n + 2 * W)
         for dy in range(2 * W + 1):
             for dx in range(2 * W + 1):
                 cand = win[:, dy:dy + n, dx:dx + n]
@@ -148,8 +149,8 @@ def me_refine_plain(ref, src_blocks, cands, lam64, n: int, cols: int,
                 best_sad = torch.where(better, sad, best_sad)
                 best_mv = torch.where(better[:, None], mvc, best_mv)
     mv_int = best_mv
-    win = _window(ref, y0 + mv_int[:, 1] - 4, x0 + mv_int[:, 0] - 4,
-                  n + 8, n + 8)
+    win = clamped_window(ref, y0 + mv_int[:, 1] - 4,
+                         x0 + mv_int[:, 0] - 4, n + 8, n + 8)
     f = LUMA_FILTERS
     # the seven horizontal variants (qx = -3..3), rows 0..n+7
     h14 = []
@@ -206,11 +207,18 @@ def me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
     int32 [L, K], with want_satd, else None, satd_l being the SATD of the
     uni-prediction of list l and satd_bi that of the pair's exact
     bi-average; pred = (v0, v1), the 14-bit intermediates [L, n, n] of
-    pair 0, with want_pred, else None."""
+    pair 0, with want_pred, else None. With ref1, mv1 and r1 None (the
+    one-list mode of P slices) the candidates are list 0's alone:
+    satd = (satd0,) and pred = (v0,)."""
     sat, pred = [], None
     for k in range(mv0.shape[1]):
         s0, v0 = eval_one_plain(ref0, src_blocks, mv0[:, k], n, cols, True,
                                 maxv, r0[:, k])
+        if ref1 is None:
+            if k == 0 and want_pred:
+                pred = (v0,)
+            sat.append((s0,))
+            continue
         s1, v1 = eval_one_plain(ref1, src_blocks, mv1[:, k], n, cols, True,
                                 maxv, r1[:, k])
         if k == 0 and want_pred:
@@ -302,7 +310,9 @@ def bind(name: str, path: str):
                        ci, vp, vp, vp]
     fn.restype = ci
     info = getattr(lib, f"kvz_{name}_info")
-    info.argtypes = [ci, ctypes.POINTER(ci)]
+    # me_eval's takes the number of lists between the size and the output
+    info.argtypes = ([ci, ci] if name == "me_eval" else [ci]) \
+        + [ctypes.POINTER(ci)]
     info.restype = ci
     return lib
 
@@ -369,13 +379,14 @@ def me_refine(ref, src_blocks, cands, lam64, *, n: int, cols: int,
     return mv, satd, pred
 
 
-def kernel_occupancy(name: str, n: int) -> dict:
-    """Launch geometry of kernel `name`'s size-n kernel on the current
-    card: blocks per SM that its launch achieves, threads and source
-    blocks per block, dynamic shared bytes per block, registers and local
-    (spill) bytes per thread."""
+def kernel_occupancy(name: str, n: int, lists: int = 2) -> dict:
+    """Launch geometry of kernel `name`'s size-n kernel (me_eval's with
+    `lists` lists) on the current card: blocks per SM that its launch
+    achieves, threads and source blocks per block, dynamic shared bytes
+    per block, registers and local (spill) bytes per thread."""
     out = (ctypes.c_int * 6)()
-    err = getattr(_lib(name), f"kvz_{name}_info")(n, out)
+    fn = getattr(_lib(name), f"kvz_{name}_info")
+    err = fn(n, lists, out) if name == "me_eval" else fn(n, out)
     if err != 0:
         raise RuntimeError(f"{name}_info failed: CUDA error {err}")
     return dict(zip(("blocks_per_sm", "threads", "sources", "smem", "regs",
@@ -389,21 +400,27 @@ def me_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
     [R1, H, W] (may be one tensor); src_blocks int32 [L, n, n] (raster
     order, `cols` blocks per row); mv0, mv1 int32 [L, K, 2] exact qpel
     MVs (x, y); r0, r1 int32 [L, K], each pair's plane of each stack.
+    ref1, mv1 and r1 all None select the one-list mode (P slices).
     want_pred takes K = 1. Held to the kernel's limits on every device,
     the reference indices included (reading their range waits for the
     device)."""
     if ref0.dim() != 3 or ref0.shape[0] < 1:
         raise ValueError("ref0 must be a reference stack [R, H, W]")
+    one = ref1 is None
+    if any((a is None) != one for a in (mv1, r1)):
+        raise ValueError("ref1, mv1 and r1 are all given (two lists) or "
+                         "all None (one list)")
     L = _check_common(ref0[0], src_blocks, n, cols)
     dev = ref0.device
     _check(ref0, "ref0", tuple(ref0.shape), dev)
-    R1 = ref1.shape[0] if ref1.dim() == 3 else -1
-    _check(ref1, "ref1", (R1,) + tuple(ref0.shape[1:]), dev)
+    R1 = -1 if one or ref1.dim() != 3 else ref1.shape[0]
     K = mv0.shape[1] if mv0.dim() == 3 else -1
     _check(mv0, "mv0", (L, K, 2), dev)
-    _check(mv1, "mv1", (L, K, 2), dev)
     _check(r0, "r0", (L, K), dev)
-    _check(r1, "r1", (L, K), dev)
+    if not one:
+        _check(ref1, "ref1", (R1,) + tuple(ref0.shape[1:]), dev)
+        _check(mv1, "mv1", (L, K, 2), dev)
+        _check(r1, "r1", (L, K), dev)
     if K < 1 or not (want_satd or want_pred):
         raise ValueError("me_eval needs K >= 1 pairs and an output")
     if want_pred and K != 1:
@@ -412,13 +429,15 @@ def me_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
     if not 0 <= maxv <= 1023:
         # the kernel's float32 arithmetic is exact up to 10 bits
         raise ValueError(f"me_eval takes maxv up to 1023, got {maxv}")
-    lo0, hi0, lo1, hi1 = torch.stack([r0.min(), r0.max(), r1.min(),
-                                      r1.max()]).tolist()
-    if lo0 < 0 or lo1 < 0 or hi0 >= ref0.shape[0] or hi1 >= R1:
-        # the kernel reads plane r of its stack unchecked
-        raise ValueError(f"me_eval reference indices out of range: r0 in "
-                         f"[{lo0}, {hi0}] of {ref0.shape[0]} planes, r1 in "
-                         f"[{lo1}, {hi1}] of {R1}")
+    lists = (("r0", r0, ref0.shape[0]),) + (() if one else
+                                            (("r1", r1, R1),))
+    ranges = torch.stack([f(r) for _, r, _ in lists
+                          for f in (torch.min, torch.max)]).tolist()
+    for (name, _, R), lo, hi in zip(lists, ranges[::2], ranges[1::2]):
+        if lo < 0 or hi >= R:
+            # the kernel reads plane r of its stack unchecked
+            raise ValueError(f"me_eval reference indices out of range: "
+                             f"{name} in [{lo}, {hi}] of {R} planes")
     if dev.type == "cpu":
         return me_eval_plain(ref0, ref1, src_blocks, mv0, mv1, r0, r1, n=n,
                              cols=cols, maxv=maxv, want_satd=want_satd,
@@ -437,24 +456,29 @@ def launch_eval(ref0, ref1, src_blocks, mv0, mv1, r0, r1, *, n: int,
     directly, so that the index check's wait stays out of them."""
     dev = ref0.device
     L, K = mv0.shape[:2]
+    lists = 1 if ref1 is None else 2
     fn = _lib("me_eval").kvz_me_eval
-    satd = (torch.empty((3, L, K), dtype=torch.int32, device=dev)
-            if want_satd else None)
-    pred = (torch.empty((2, L, n, n), dtype=torch.int32, device=dev)
+    satd = (torch.empty((3 if lists == 2 else 1, L, K), dtype=torch.int32,
+                        device=dev) if want_satd else None)
+    pred = (torch.empty((lists, L, n, n), dtype=torch.int32, device=dev)
             if want_pred else None)
     H, W = ref0.shape[1:]
-    err = fn(ref0.data_ptr(), ref1.data_ptr(), H, W, src_blocks.data_ptr(),
-             mv0.data_ptr(), mv1.data_ptr(), r0.data_ptr(), r1.data_ptr(),
-             K, L, n, cols, maxv,
-             satd.data_ptr() if want_satd else None,
-             pred.data_ptr() if want_pred else None,
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = fn(ref0.data_ptr(), ptr(ref1), H, W, src_blocks.data_ptr(),
+             mv0.data_ptr(), ptr(mv1), r0.data_ptr(), ptr(r1),
+             K, L, n, cols, maxv, ptr(satd), ptr(pred),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"me_eval launch failed: CUDA error {err}")
     me_eval.launches += 1
+    me_eval.one_list_launches += lists == 1
     return (tuple(satd) if want_satd else None,
             tuple(pred) if want_pred else None)
 
 
+# launch counts (me_eval's of both modes, and of its one-list mode alone)
 me_refine.launches = 0
 me_eval.launches = 0
+me_eval.one_list_launches = 0

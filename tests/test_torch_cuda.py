@@ -10,9 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (LOWDELAY, TOOL_LDB,  # noqa: E402
+from chip_smoke import (LOWDELAY, P_SMP, TOOL_LDB,  # noqa: E402
                         compare_devices, kernel_errors, kernel_inputs,
-                        mixed_frames, tie_inputs, tie_planes)
+                        mixed_frames, split_motion_frames, tie_inputs,
+                        tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -33,7 +34,9 @@ def test_kernels_match_plain(n):
     coinciding in pairs), where the strict-< scan order decides; me_eval
     with K = 1 and 4 pairs, every output flag, on a stack of one picture
     for both lists and on stacks of two with random (and, on the
-    tie-heavy planes, coinciding) per-pair reference indices."""
+    tie-heavy planes, coinciding) per-pair reference indices, and in its
+    one-list mode with K = 1 and 5 on stacks of one, two and four
+    pictures."""
     dev = _need_cuda()
     rng = np.random.RandomState(n)
     ref = torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.int32))
@@ -48,9 +51,10 @@ def test_kernels_match_plain(n):
     lam = torch.tensor([153], dtype=torch.int32, device=dev)
     before = (me.me_refine.launches, me.me_eval.launches)
     err = kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1)
-    # me_eval: 4 call patterns x 3 pairs of stacks
+    # me_eval: 4 call patterns x 3 pairs of stacks, then 3 one-list call
+    # patterns x 3 stacks
     assert (me.me_refine.launches, me.me_eval.launches) == \
-        (before[0] + 1, before[1] + 12)
+        (before[0] + 1, before[1] + 12 + 9)
     assert err == {"me_refine": 0, "me_eval": 0}
     for name, plane, lam64 in tie_planes(H, W):
         t_ref, t_blocks, t_cands, t_mvs, _ = tie_inputs(plane, n, 5, gen,
@@ -62,6 +66,7 @@ def test_kernels_match_plain(n):
         assert err == {"me_refine": 0, "me_eval": 0}, name
     for name in me.KERNELS:
         assert me.kernel_occupancy(name, n)["blocks_per_sm"] >= 1, name
+    assert me.kernel_occupancy("me_eval", n, lists=1)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
@@ -114,3 +119,24 @@ def test_cuda_lowdelay_equals_cpu():
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 6 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+def test_cuda_p_smp_equals_cpu():
+    """The P program with SMP, AMP and two reference pictures gives the
+    CPU path's stream and maps (part8 included) on the GPU over IDR + 2 P
+    of split-motion content, with 8 me_refine launches (4 sizes x 2
+    pictures) and 8 one-list me_eval launches a P frame."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches,
+              me.me_eval.one_list_launches)
+    frames = split_motion_frames(3, W, H, edges=(40,), patch=True)
+    stream, rows = compare_devices(frames, W, H, **P_SMP)
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1],
+            me.me_eval.one_list_launches - before[2]) == (2 * 8, 2 * 8,
+                                                          2 * 8)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 3 and all(p.hash_ok for p in pics)

@@ -286,8 +286,8 @@ def _int_costs(ref, blocks, cands, lam, n, cols):
     costs = []
     for k in range(K):
         mvk = cands[:, k].clamp(-me.MV_CLAMP, me.MV_CLAMP)
-        win = me._window(ref, y0 + mvk[:, 1] - 3, x0 + mvk[:, 0] - 3,
-                         n + 6, n + 6)
+        win = me.clamped_window(ref, y0 + mvk[:, 1] - 3,
+                                x0 + mvk[:, 0] - 3, n + 6, n + 6)
         for o, prior in enumerate(me.prior_int_table()):
             dy, dx = divmod(o, 7)
             sad = (win[:, dy:dy + n, dx:dx + n] - blocks).abs().sum(

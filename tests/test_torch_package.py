@@ -79,11 +79,8 @@ def test_encoder_targets_cuda_by_default():
 
 
 UNSUPPORTED = {
-    "no_bipred": dict(bipred=False),
-    "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
     "gop8": dict(gop_len=8), "gop4_pyramid": dict(gop_len=4),
     "open_gop": dict(gop_len=8, open_gop=True),
-    "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False),
     "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
     "lossless": dict(lossless=True), "wpp": dict(wpp=True),
     "scaling": dict(scaling_list="default"), "vaq": dict(vaq=2),
@@ -106,15 +103,19 @@ TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
          "signhide": dict(signhide_enable=True),
          "ref2": dict(ref_frames=2),
          "lp_gop": dict(gop_len=4, gop_lowdelay=True, gop_lp=(3, 1),
-                        ref_frames=2)}
+                        ref_frames=2),
+         "no_bipred": dict(bipred=False),
+         "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
+         "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False)}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_options_encode_and_decode(name):
-    """Each option of the tool row, two references a list and the
-    low-delay GOP build on cuda unless the CPU is asked for, and encode
-    IDR + B at 128x64 on the CPU (both pipelines), hash-exact in the
-    port's decoder."""
+    """Each option of the tool row, two references a list, the low-delay
+    GOP, the P program (--no-bipred) and SMP/AMP build on cuda unless the
+    CPU is asked for, and encode IDR + B (P with --no-bipred; --smp/--amp
+    change only the SPS under bi-prediction) at 128x64 on the CPU (both
+    pipelines), hash-exact in the port's decoder."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
@@ -133,9 +134,27 @@ def test_tool_options_encode_and_decode(name):
         stream, infos = encode_sequence(cfg, frames, device="cpu")
     finally:
         torch.set_num_threads(n_threads)
-    assert [i["slice_type"] for i in infos] == [2, 0]
+    assert [i["slice_type"] for i in infos] == [2, 0 if cfg.bipred else 1]
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.parametrize("opts", [{}, dict(smp_enable=True),
+                                  dict(amp_enable=True),
+                                  dict(amp_enable=True, bipred=False)],
+                         ids=["default", "smp", "amp", "amp_no_bipred"])
+def test_sps_equals_reference(opts):
+    """build_sps writes the JAX package's SPS, amp_enabled_flag included
+    (set by --amp under bi-prediction too)."""
+    from kvazaar_tpu.api import build_sps as ref_build_sps
+    from kvazaar_tpu.hevc.headers import write_sps as ref_write_sps
+    from kvazaar_tpu_torch.api import build_sps
+    from kvazaar_tpu_torch.cfg import Config
+    from kvazaar_tpu_torch.hevc.headers import write_sps
+    cfg = Config(width=128, height=64, **opts)
+    sps = build_sps(cfg)
+    assert sps.amp_enabled == int(cfg.amp_enable)
+    assert write_sps(sps) == ref_write_sps(ref_build_sps(cfg))
 
 
 def test_cli_encodes_on_cpu(tmp_path):

@@ -94,8 +94,10 @@ def main(argv) -> None:
     stack = torch.stack([ref, ref1])
 
     def args_of(blocks, mvs, k):
-        return (stack, stack, blocks) + tuple(a[:, :k].contiguous()
-                                              for a in mvs)
+        # the indices of kernel_inputs name a stack of four: mod 2 here
+        mv0, mv1, r0, r1 = mvs
+        return (stack, stack, blocks) + tuple(
+            a[:, :k].contiguous() for a in (mv0, mv1, r0 % 2, r1 % 2))
     bound = {}
     for n, (blocks, _, mvs, cols) in inputs.items():
         bound[n] = bound_ms([eval_work(n, blocks.shape[0], k, hp, wp,

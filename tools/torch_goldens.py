@@ -24,10 +24,18 @@ low-delay GOP lp-g4d3t1 with two references a list):
   the retained DPB, as JSON) of 9 slice_frames with --ref 1, 2, 4;
 - the B inter leaf at n = 16 and 64 with two-picture reference stacks
   (`ldleaf<n>_*`) on cross_inputs, where the cross-reference
-  bi-prediction candidate wins.
+  bi-prediction candidate wins;
+
+and in tests/data/torch_golden_p.npz, the P program (--no-bipred):
+
+- per P_CONFIGS entry the stream and every frame's maps (`part8`
+  included where SMP is on), as above;
+- on cross_inputs with a two-picture stack, the merge alignment
+  (`pmerge<n>_*`) and the P inter leaf (`pleaf<n>_*`) at n = 16 and 64;
+- on split_inputs, the SMP/AMP leaf (`psmp<n>_*`) at n = 16 and 32.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay] (every file when no argument is given).
+[slice|tools|lowdelay|p] (every file when no argument is given).
 """
 from __future__ import annotations
 
@@ -44,12 +52,13 @@ OUT = os.path.join(ROOT, "tests", "data", "torch_golden_slice.npz")
 OUT_TOOLS = os.path.join(ROOT, "tests", "data", "torch_golden_tools.npz")
 OUT_LOWDELAY = os.path.join(ROOT, "tests", "data",
                             "torch_golden_lowdelay.npz")
+OUT_P = os.path.join(ROOT, "tests", "data", "torch_golden_p.npz")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
 MAP_KEYS = ("size_map8", "mode_map8", "inter8", "dir8", "mv8", "ref8",
             "mv8b", "ref8b", "levels_y", "levels_cb", "levels_cr", "hash",
-            "rec_y", "rec_cb", "rec_cr") + SAO_KEYS
+            "rec_y", "rec_cb", "rec_cr", "part8") + SAO_KEYS
 # the tool-row goldens at QP 27: (configuration, frames). "intra" is
 # bench.py's scenario 1 tool row (deblocking, SAO full, RDOQ, no sign
 # hiding) all-intra; "ldb" adds sign hiding on IDR + 2 generalized-B.
@@ -71,6 +80,18 @@ LOWDELAY_CONFIGS = {
                       sao_type="full", rdoq_enable=True,
                       signhide_enable=False), 6),
 }
+# the P program (--no-bipred): (configuration, frames, count). "p" is
+# the default configuration with bi-prediction off; "smp" the run of
+# tests/test_smp.py (split-motion content at 192x128, QP 30) with SMP and
+# AMP; "lp_p" scenario 2's GOP with the tool row, its frames P slices
+P_CONFIGS = {
+    "p": (dict(bipred=False), "slice", 3),
+    "smp": (dict(bipred=False, qp=30, intra_period=0, smp_enable=True,
+                 amp_enable=True), "split", 3),
+    "lp_p": (dict(LOWDELAY_CONFIGS["lp_tools"][0], bipred=False),
+             "slice", 6),
+}
+SMP_W, SMP_H = 192, 128
 PLAN_REFS = (1, 2, 4)
 PLAN_FRAMES = 9
 LEAF_QP = 22
@@ -228,6 +249,91 @@ def jax_lowdelay_leaves() -> dict:
     return out
 
 
+def p_frames(kind: str, n: int) -> list:
+    """Frames of a P_CONFIGS entry: slice_frames, or tests/test_smp.py's
+    split-motion content at SMP_W x SMP_H."""
+    if kind == "split":
+        from chip_smoke import split_motion_frames
+        return split_motion_frames(n, SMP_W, SMP_H)
+    return slice_frames(n)
+
+
+def split_inputs() -> dict:
+    """Inputs of the SMP leaf goldens at 128x64: split-motion content with
+    its band edge at row 40 (half a 16-block, a quarter of a 32-block
+    inside the CU rows 32-63), frame 2 as the source and frames 1 and 0
+    as a two-picture stack."""
+    from chip_smoke import split_motion_frames
+    f = split_motion_frames(3, W, H, edges=(40,))
+    return {"src": f[2], "refs": (f[1], f[0])}
+
+
+def p_pipeline(**kw):
+    """The JAX P pipeline of the stage goldens: QP LEAF_QP, two pictures
+    a stack, deblocking on."""
+    from kvazaar_tpu.models.inter_md import MdInterPipeline
+    return MdInterPipeline(H, W, LEAF_QP, n_refs=2, b_slices=False,
+                           deblock=True, **kw)
+
+
+def _stack_inputs(inp):
+    import jax.numpy as jnp
+    src = tuple(jnp.asarray(p, jnp.int32) for p in inp["src"])
+    refs = tuple(jnp.stack([jnp.asarray(r[c], jnp.int32)
+                            for r in inp["refs"]]) for c in range(3))
+    return src, refs
+
+
+def jax_p_leaves() -> dict:
+    """The JAX P merge alignment and inter leaf at n = 16 and 64 on
+    cross_inputs, and the SMP/AMP leaf at n = 16 and 32 on split_inputs
+    (two-picture stacks, QP LEAF_QP)."""
+    import jax
+    import jax.numpy as jnp
+    pipe = p_pipeline()
+    lam = pipe.lam2[0]
+    src, refs = _stack_inputs(cross_inputs())
+    out = {}
+    for n, t, tc in ((16, pipe.t16, pipe.t8), (64, pipe.t32, pipe.t16)):
+        def leaf(s_y, s_cb, s_cr, r_y, r_cb, r_cr, n=n, t=t, tc=tc):
+            fields = [pipe._coarse_field(s_y, r_y[k]) for k in range(2)]
+            pipe._merge_field0 = fields[0]
+            me = pipe._me_kernel_sizes(s_y, r_y, fields, None)
+            blocks, rows, cols = pipe._blocks_of(s_y, n)
+            lam_satd = jnp.sqrt(lam).astype(jnp.float32)
+            mv_q, ref, satd, bits, pred = pipe._pick_ref_me(
+                me[n], lam_satd, rows * cols)
+            merge = pipe._merge_align_p(None, r_y, blocks, rows, cols, n,
+                                        mv_q, ref, satd, bits, pred,
+                                        lam_satd)
+            return merge, pipe._inter_leaf(s_y, s_cb, s_cr, r_y, r_cb,
+                                           r_cr, fields, n, t, tc, lam,
+                                           me=me[n], planes=None)
+        merge, res = jax.jit(pipe._with_consts(leaf))(pipe.consts, *src,
+                                                     *refs)
+        for k, v in zip(MERGE_P_KEYS, merge):
+            out[f"pmerge{n}_{k}"] = np.asarray(v)
+        for k, v in zip(LEAF_P_KEYS, res):
+            out[f"pleaf{n}_{k}"] = np.asarray(v)
+    pipe = p_pipeline(smp=True, amp=True)
+    lam = pipe.lam2[0]
+    src, refs = _stack_inputs(split_inputs())
+    for n in (16, 32):
+        def smp(s_y, s_cb, s_cr, r_y, r_cb, r_cr, n=n):
+            fields = [pipe._coarse_field(s_y, r_y[k]) for k in range(2)]
+            return pipe._smp_leaf(s_y, s_cb, s_cr, r_y, r_cb, r_cr, fields,
+                                  n, lam)
+        res = jax.jit(pipe._with_consts(smp))(pipe.consts, *src, *refs)
+        for k, v in zip(SMP_KEYS, res):
+            out[f"psmp{n}_{k}"] = np.asarray(v)
+    return out
+
+
+MERGE_P_KEYS = ("mv", "ref", "mv_bits", "pred_y", "use", "delta")
+LEAF_P_KEYS = ("mv", "ref", "cost", "pred_y", "pred_cb", "pred_cr")
+SMP_KEYS = ("part", "mva", "refa", "mvb", "refb", "cost")
+
+
 def _stream_arrays(prefix: str, stream: bytes, decs: list) -> dict:
     data = {prefix + "stream": np.frombuffer(stream, np.uint8)}
     for i, d in enumerate(decs):
@@ -268,8 +374,22 @@ def write_lowdelay_golden(path: str = OUT_LOWDELAY) -> None:
     _save(path, data)
 
 
+def write_p_golden(path: str = OUT_P) -> None:
+    import time
+    data = {}
+    for name, (cfg, kind, n) in P_CONFIGS.items():
+        t = time.perf_counter()
+        data.update(_stream_arrays(name + "_",
+                                   *jax_stream(p_frames(kind, n), **cfg)))
+        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    data.update(jax_p_leaves())
+    print(f"stages: {time.perf_counter() - t:.1f} s", flush=True)
+    _save(path, data)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["slice", "tools", "lowdelay"]
+    which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p"]
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
-         "lowdelay": write_lowdelay_golden}[w]()
+         "lowdelay": write_lowdelay_golden, "p": write_p_golden}[w]()

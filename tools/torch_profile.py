@@ -27,9 +27,19 @@ with the default tools and with SAO full + RDOQ + sign hiding
 (chip_smoke.TOOL_LDB), in turns: per frame the submit, partition,
 batched inter recon, wavefront and SAO ms (host clock, synchronized).
 
+With --p it measures the P program (--no-bipred, --ref 2) on
+chip_smoke.py's P-phase content (split_motion_frames at 1080p): IDR + 2
+P without and with SMP/AMP, in turns (SMP, plain, plain, SMP), per frame
+the submit, partition, P leaf, SMP leaf, batched recon, wavefront and
+host entropy ms (host clock, synchronized); then, with SMP, one P
+frame's SMP search (`_smp_leaf` at n = 16 and 32, each profiled on its
+own: kernel launches, kernel-busy ms, host wall ms and top kernels) and
+the whole next P frame under torch.profiler (launches, kernel-busy share
+of its unprofiled wall time).
+
 Usage (on a machine with a GPU):
     python3 tools/torch_profile.py [frames] [--leaf]
-    python3 tools/torch_profile.py --wave | --recon
+    python3 tools/torch_profile.py --wave | --recon | --p
 """
 from __future__ import annotations
 
@@ -229,8 +239,94 @@ def recon_compare() -> None:
                   f"{info['n_waves']}): {parts} ms", flush=True)
 
 
+def p_profile() -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import P_SMP, smi, split_motion_frames, wrap_timed
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    w, h = 1920, 1080
+    frames = split_motion_frames(4, w, h, edges=tuple(range(48, h, 64)),
+                                 patch=True)
+    cfgs = {"SMP/AMP": P_SMP,
+            "plain": {k: v for k, v in P_SMP.items()
+                      if k not in ("smp_enable", "amp_enable")}}
+    encode_sequence(Config(width=w, height=h, **cfgs["plain"]), frames[:2])
+    print(smi("name,power.limit"), flush=True)
+    stages = ("submit", "submit_inter", "_partition_inter_p",
+              "_inter_leaf_p", "_smp_leaf", "_inter_recon_batch",
+              "_recon_md")
+    for label in ("SMP/AMP", "plain", "plain", "SMP/AMP"):
+        enc = Encoder(Config(width=w, height=h, **cfgs[label]))
+        times: dict = {}
+        wrap_timed(torch, enc._pipeline, {k: k for k in stages}, times)
+        wrap_timed(torch, enc, {"finalize_frame": "host entropy"}, times)
+        for i, f in enumerate(frames[:3]):
+            times.clear()
+            _, info = enc.encode_frame(*f)
+            parts = ", ".join(f"{k} {sum(v):.1f}" + (f" x{len(v)}"
+                                                     if len(v) > 1 else "")
+                              for k, v in times.items())
+            print(f"{label} frame {i} ({info['bytes']} bytes, waves "
+                  f"{info['n_waves']}): {parts} ms", flush=True)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def kernel_events(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    enc = Encoder(Config(width=w, height=h, **P_SMP))
+    pipe = enc._pipeline
+    smp_leaf = pipe._smp_leaf
+
+    def profiled_smp(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=acts) as prof:
+            r = smp_leaf(*a, **kw)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        ev = kernel_events(prof)
+        print(f"profile SMP search n={a[-1]}: {sum(e.count for e in ev)} "
+              f"kernel launches, kernels busy "
+              f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms, "
+              f"host wall {wall:.1f} ms profiled", flush=True)
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:7d}  {e.key[:80]}", flush=True)
+        return r
+    enc.encode_frame(*frames[0])
+    pipe._smp_leaf = profiled_smp
+    enc.encode_frame(*frames[1])
+    pipe._smp_leaf = smp_leaf
+    # frame 2 unprofiled (the first encoder), then profiled (a second
+    # one, which codes it the same way)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    enc.encode_frame(*frames[2])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    enc2 = Encoder(Config(width=w, height=h, **P_SMP))
+    for f in frames[:2]:
+        enc2.encode_frame(*f)
+    with profile(activities=acts) as prof:
+        enc2.encode_frame(*frames[2])
+        torch.cuda.synchronize()
+    ev = kernel_events(prof)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    print(f"profile P frame 2 (SMP/AMP): {sum(e.count for e in ev)} kernel "
+          f"launches, kernels busy {busy:.1f} ms = {100 * busy / wall:.1f}% "
+          f"of its unprofiled {wall:.1f} ms", flush=True)
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms x{e.count:7d}  "
+              f"{e.key[:80]}", flush=True)
+
+
 if __name__ == "__main__":
-    if "--wave" in sys.argv[1:]:
+    if "--p" in sys.argv[1:]:
+        p_profile()
+    elif "--wave" in sys.argv[1:]:
         wave_profile()
     elif "--recon" in sys.argv[1:]:
         recon_compare()
