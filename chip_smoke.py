@@ -29,7 +29,7 @@ Phases (each prints its lines; any failure exits non-zero):
    the CPU (plain versions, held against the JAX package by the tests)
    give the same stream and the same decision maps;
 6. tool row (SAO, RDOQ, sign hiding; the kernel launch counters are read
-   around each encode): (a) bench.py's scenario 1, 2 all-intra frames at
+   around each encode): (a) bench.py's scenario 1, 1 all-intra frame at
    1920x1080 and QP 27 with deblocking, SAO full and RDOQ; (b) IDR + 2 B
    at 1920x1080 and QP 27 with SAO full, RDOQ and sign hiding, 8
    me_refine and 12 me_eval launches a B frame; both streams decode
@@ -52,10 +52,20 @@ Phases (each prints its lines; any failure exits non-zero):
    entropy times (SMP slices are coded by the Python writer); then that
    configuration (IDR + 2 P) and lp-g4d3t1 --ref 2 --no-bipred with the
    tool row (6 frames) at 416x240 on cuda and on the CPU: the same
-   streams and maps.
+   streams and maps;
+9. the GOP8 B pyramid (bench scenario 3, -p 24 --gop 8) with scenario
+   1's tool row at QP 27: 12 frames at 1920x1080 fed in display order
+   through push_frame/flush (IDR, P 8 with B 4 2 1 3 6 5 7, then P 10, B
+   9, P 11: 76 me_refine, 96 pair and 24 one-list me_eval launches),
+   hash-exact, decoded in display order, some B frame predicting from a
+   future picture of list 1; per frame the display index, POC, slice and
+   NAL type, QP, l0, l1, bytes, PSNR, waves and times; then --gop 8 -p 8
+   --open-gop at 416x240 (12 frames: IDR, CRA 8 with seven RASL
+   pictures, P 10, B 9, P 11) on cuda and on the CPU: the same stream and
+   maps, with CRA, RASL_R and RASL_N pictures.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6, 7 and 8; me_eval's pair and one-list
-modes in rows of their own), the nvidia-smi name/power-limit
+over the encodes of phases 4, 6, 7, 8 and 9; me_eval's pair and
+one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
 The helpers mixed_frames, split_motion_frames, kernel_inputs,
@@ -103,6 +113,13 @@ LOWDELAY = dict(intra_period=0, gop_len=4, gop_lowdelay=True,
                 gop_lp=(3, 1), ref_frames=2)
 # the P program with SMP and AMP and two reference pictures
 P_SMP = dict(bipred=False, smp_enable=True, amp_enable=True, ref_frames=2)
+# bench.py's scenario 3 (bench.py:252): the GOP8 B pyramid, run with the
+# tool row; and the open-GOP pyramid (a CRA picture every 8 frames)
+GOP8 = dict(intra_period=24, gop_len=8)
+OPEN_GOP = dict(intra_period=8, gop_len=8, open_gop=True)
+# NAL unit types (H.265 table 7-1) that phase 9 looks for
+NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
+             19: "IDR_W_RADL", 21: "CRA_NUT"}
 
 
 def fail(msg: str) -> None:
@@ -324,23 +341,29 @@ def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1):
 
 
 def compare_devices(frames, w, h, **cfg):
-    """Encode frames with the configuration cfg (Config options; the
-    defaults when empty) on cuda and on the CPU, where the kernels' plain
-    versions run. Returns the cuda stream and, per frame, whether both
-    chunks are identical, the decision maps that differ, and the waves of
-    the wavefront on each device."""
-    from kvazaar_tpu_torch.api import Encoder
+    """Encode display-order frames through encode_sequence with the
+    configuration cfg (Config options; the defaults when empty) on cuda
+    and on the CPU, where the kernels' plain versions run. Returns the
+    cuda stream and, per coded frame (coding order), whether both chunks
+    are identical, the decision maps that differ, and the waves of the
+    wavefront on each device."""
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     res = {}
     for dev in ("cuda", "cpu"):
         enc = Encoder(Config(width=w, height=h, **cfg), device=dev)
         res[dev] = []
-        for f in frames:
-            chunk, info = enc.encode_frame(*f)
+
+        def record(meta, enc=enc, finalize=enc.finalize_frame,
+                   coded=res[dev]):
+            chunk, info = finalize(meta)
             maps = {k: (v.cpu().numpy() if hasattr(v, "cpu")
                         else np.asarray(v))
                     for k, v in enc._last_decisions.items()}
-            res[dev].append((chunk, maps, int(info["n_waves"])))
+            coded.append((chunk, maps, int(info["n_waves"])))
+            return chunk, info
+        enc.finalize_frame = record
+        encode_sequence(enc.cfg, frames, encoder=enc)
     rows = [{"same_stream": ca == cb,
              "differing_maps": [k for k in ma if k in mb
                                 and not np.array_equal(ma[k], mb[k])],
@@ -622,20 +645,22 @@ def phase_kernels(me, torch, rates):
 
 
 def encode_timed(torch, me, cfg, frames, label):
-    """Encode frames through encode_sequence on cuda with the Config
-    options cfg, the kernel launch counters set to 0 just before and read
-    just after. Prints the run and, per frame, POC, QP, list 0, bytes,
-    PSNR, waves, the cells of each SMP part id (P frames with SMP) and
-    the host-clock times (synchronized) of the frame's submit, its
-    wavefront, its SAO and its host entropy coding. Fails unless every
-    frame without SMP PUs was coded by the native slice writers (SMP
-    slices take the Python writer), each B frame launched me_refine 8
-    times a reference picture of its stacks (4 sizes x 2 lists) and
-    me_eval 12 times, each P frame me_refine 4 times a picture of its
-    stack and me_eval 8 times in its one-list mode, and the stream
-    decodes hash-exactly to the encoder's reconstruction. Returns
-    (launches, infos, per-frame reference maps: inter8, dir8, ref8,
-    ref8b, part8 where present)."""
+    """Encode display-order frames through encode_sequence on cuda with
+    the Config options cfg, the kernel launch counters set to 0 just
+    before and read just after. Prints the run and, per coded frame
+    (coding order), its display index, POC, slice and NAL type, QP, list
+    0 and list 1, bytes, PSNR, waves, the cells of each SMP part id (P
+    frames with SMP) and the host-clock times (synchronized) of the
+    frame's submit, its wavefront, its SAO and its host entropy coding.
+    Fails unless every frame without SMP PUs was coded by the native
+    slice writers (SMP slices take the Python writer), each B frame
+    launched me_refine 8 times a reference picture of its stacks (4
+    sizes x 2 lists) and me_eval 12 times, each P frame me_refine 4 times
+    a picture of its stack and me_eval 8 times in its one-list mode, and
+    the stream decodes hash-exactly to the encoder's reconstruction, in
+    display order. Returns (launches, infos, per coded frame the
+    reference maps inter8, dir8, ref8, ref8b and part8 where present,
+    with the frame's plan: disp, l0, l1, nal)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
@@ -646,15 +671,19 @@ def encode_timed(torch, me, cfg, frames, label):
                 "submit_inter": "submit", "_recon_md": "wavefront",
                 "_sao": "sao"}, times)
     wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
-    lists, maps = [], []
+    maps = []
     finalize = enc.finalize_frame
 
     def record(meta):
         out = finalize(meta)
-        lists.append(list(meta["l0"]))
-        maps.append({k: np.asarray(enc._last_decisions[k])
-                     for k in ("inter8", "dir8", "ref8", "ref8b", "part8")
-                     if k in enc._last_decisions})
+        m = {k: np.asarray(enc._last_decisions[k])
+             for k in ("inter8", "dir8", "ref8", "ref8b", "part8")
+             if k in enc._last_decisions}
+        m.update(disp=meta["frame_num"], l0=list(meta["l0"]),
+                 l1=list(meta["l1"]),
+                 nal="IDR" if meta["is_idr"] else meta["nal"]
+                 or ("TRAIL_R" if meta["is_ref"] else "TRAIL_N"))
+        maps.append(m)
         return out
     enc.finalize_frame = record
     me.me_refine.launches = 0
@@ -687,9 +716,9 @@ def encode_timed(torch, me, cfg, frames, label):
           f"{enc.native_slices}, SMP slices (Python writer) {smp}",
           flush=True)
     sao = times["sao"] or [None] * len(infos)
-    for k, (i, sub, wav, sao_ms, host, l0, m) in enumerate(zip(
+    for k, (i, sub, wav, sao_ms, host, m) in enumerate(zip(
             infos, times["submit"], times["wavefront"], sao,
-            times["host"], lists, maps)):
+            times["host"], maps)):
         kind = {2: "IDR", 1: "P", 0: "B"}[i["slice_type"]]
         parts = ""
         if "part8" in m:
@@ -697,8 +726,9 @@ def encode_timed(torch, me, cfg, frames, label):
                                  return_counts=True)
             parts = (", inter cells by part id "
                      + str(dict(zip(ids.tolist(), cnt.tolist()))))
-        print(f"  frame {k} {kind} (POC {i['poc']}, QP {i['qp']}, l0 "
-              f"{l0}): {i['bytes']} bytes, PSNR Y "
+        print(f"  frame {k} {kind} (display {m['disp']}, POC {i['poc']}, "
+              f"{m['nal']}, QP {i['qp']}, l0 {m['l0']}, l1 {m['l1']}): "
+              f"{i['bytes']} bytes, PSNR Y "
               f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
               f"{i['psnr'][2]:.4f}, waves {i['n_waves']}{parts}; submit "
               f"wall {sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
@@ -717,12 +747,46 @@ def encode_timed(torch, me, cfg, frames, label):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     if len(pics) != len(frames) or not all(ok):
         fail(f"{label}: the stream does not decode hash-exactly")
+    shown = output_order(pics, [m["disp"] for m in maps])
+    if shown != list(range(len(frames))):
+        fail(f"{label}: decoded output order {shown} is not display order")
     for p, i in zip(pics, infos):
         if not all(np.array_equal(a, b) for a, b in
                    zip(p.planes, i["recon_out"])):
             fail(f"{label}: decoded planes differ from the encoder's "
                  "reconstruction")
     return launches, infos, maps
+
+
+def output_order(pics, disp) -> list:
+    """The display indices (disp, per coded frame) of the decoded
+    pictures pics (decoding order) in output order: by POC within each
+    coded video sequence, which an IDR picture (POC 0) starts."""
+    seq, keys = -1, []
+    for p in pics:
+        seq += p.poc == 0
+        keys.append((seq, p.poc))
+    return [disp[k] for k in sorted(range(len(pics)), key=keys.__getitem__)]
+
+
+def nal_types(stream: bytes) -> list:
+    """The nal_unit_type of every NAL unit of an Annex-B stream."""
+    out, i = [], stream.find(b"\x00\x00\x01")
+    while i >= 0:
+        out.append((stream[i + 3] >> 1) & 0x3F)
+        i = stream.find(b"\x00\x00\x01", i + 3)
+    return out
+
+
+def future_l1_blocks(m: dict, poc: int) -> int:
+    """8x8 cells of a B frame's maps that predict from list 1 (dir8 2 or
+    3) on a picture after the frame itself (POC above poc)."""
+    if not m["l1"]:
+        return 0
+    l1 = np.asarray(m["l1"])
+    ref = l1[np.minimum(m["ref8b"].astype(np.int64), len(l1) - 1)]
+    return int((m["inter8"].astype(bool) & ((m["dir8"] & 2) != 0)
+                & (ref > poc)).sum())
 
 
 def second_ref_blocks(m: dict) -> int:
@@ -750,11 +814,11 @@ def phase_main(torch, me):
 
 
 def phase_tools(torch, me):
-    """The tool row: (a) bench scenario 1, 2 all-intra frames at 1080p;
+    """The tool row: (a) bench scenario 1, 1 all-intra frame at 1080p;
     (b) IDR + 2 B at 1080p with sign hiding too; (c) config (b) at
     416x240 on cuda and on the CPU. Returns the launches of (a) and (b)."""
     la = encode_timed(torch, me, dict(TOOL_ROW, intra_period=1),
-                      mixed_frames(2, W, H), "tool row (a) all-intra")[0]
+                      mixed_frames(1, W, H), "tool row (a) all-intra")[0]
     lb = encode_timed(torch, me, TOOL_LDB, mixed_frames(3, W, H),
                       "tool row (b) IDR + B")[0]
     t = time.perf_counter()
@@ -848,6 +912,41 @@ def phase_p(torch, me):
     return launches
 
 
+def phase_gop(torch, me):
+    """Bench scenario 3 with the tool row: 12 frames of mixed_frames at
+    1080p through encode_sequence on cuda (push_frame/flush), hash-exact
+    and decoded in display order; some B frame must predict from a
+    future picture of list 1. Then --gop 8 -p 8 --open-gop at 416x240
+    (12 frames) on cuda and on the CPU: the same stream and maps, with
+    CRA, RASL_R and RASL_N pictures. Returns the launches of the 1080p
+    encode."""
+    launches, infos, maps = encode_timed(
+        torch, me, dict(TOOL_ROW, **GOP8), mixed_frames(12, W, H),
+        "GOP8 (bench scenario 3)")
+    fut = {i["poc"]: future_l1_blocks(m, i["poc"])
+           for i, m in zip(infos, maps) if i["slice_type"] == 0}
+    print(f"  8x8 cells predicted from a future picture of list 1, by "
+          f"POC: {fut}", flush=True)
+    if not any(fut.values()):
+        fail("GOP8: no B frame predicts from a future picture")
+    t = time.perf_counter()
+    stream, rows = compare_devices(mixed_frames(12, 416, 240), 416, 240,
+                                   **OPEN_GOP)
+    for i, r in enumerate(rows):
+        print(f"open GOP device parity 416x240 frame {i}: stream "
+              f"identical {r['same_stream']}, differing maps "
+              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
+              flush=True)
+    kinds = [NAL_NAMES[t] for t in nal_types(stream) if t in NAL_NAMES]
+    print(f"open GOP device parity: {time.perf_counter() - t:.1f} s; "
+          f"slice NAL types {kinds}", flush=True)
+    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
+        fail("open GOP: cuda and CPU encodes differ")
+    if not {"CRA_NUT", "RASL_R", "RASL_N"} <= set(kinds):
+        fail("open GOP: no CRA, RASL_R or RASL_N picture")
+    return launches
+
+
 def phase_device_parity():
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps."""
@@ -922,6 +1021,7 @@ def main() -> None:
     runs.append(phase_tools(torch, me))
     runs.append(phase_lowdelay(torch, me))
     runs.append(phase_p(torch, me))
+    runs.append(phase_gop(torch, me))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "
           f"of the encodes {launches}", flush=True)

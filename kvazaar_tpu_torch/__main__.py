@@ -200,10 +200,18 @@ def main(argv=None) -> int:
         if frame is None:
             break
         submitted += 1
+        if enc.gop_enabled:
+            # B pyramid: frames are buffered and coded span by span
+            for pair in enc.push_frame(*frame):
+                _emit_done(pair)
+            continue
         meta = enc.submit_frame(*frame)
         if pending is not None:
             _emit(pending)
         pending = meta
+    if enc.gop_enabled:
+        for pair in enc.flush():
+            _emit_done(pair)
     if pending is not None:
         _emit(pending)
     dt = time.time() - t0

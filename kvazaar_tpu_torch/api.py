@@ -9,7 +9,11 @@ between with 1-4 reference pictures (--ref): generalized-B slices (list 1
 list) or, with --no-bipred, P slices (SMP/AMP rectangular PUs with
 --smp/--amp), and the low-delay GOP (--gop lp-gGdDtT: per-layer QP
 offsets, keyframe references and selective retention of reference
-pictures). Options outside that (the GOP8 pyramid, --open-gop) raise
+pictures); and the B pyramid (--gop 2/4/8/16, closed or --open-gop):
+display-order frames fed through push_frame/flush are coded span by span
+in coding order (engine/gop.py's GopScheduler), a P anchor (or an
+open-GOP CRA picture) then the dyadic B pictures with past pictures in
+list 0 and future ones in list 1. Options outside that raise
 NotImplementedError naming their ROADMAP.md entry.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
@@ -20,12 +24,14 @@ from __future__ import annotations
 
 import numpy as np
 
-from .bitstream import (BitWriter, NAL_IDR_W_RADL, NAL_PPS, NAL_SPS,
-                        NAL_SUFFIX_SEI, NAL_TRAIL_N, NAL_TRAIL_R, NAL_VPS,
-                        nal_unit, rbsp_to_ebsp)
+from .bitstream import (BitWriter, NAL_CRA_NUT, NAL_IDR_W_RADL, NAL_PPS,
+                        NAL_RASL_N, NAL_RASL_R, NAL_SPS, NAL_SUFFIX_SEI,
+                        NAL_TRAIL_N, NAL_TRAIL_R, NAL_VPS, nal_unit,
+                        rbsp_to_ebsp)
 from .cabac import CabacEncoder, ContextSet
 from .cfg import Config
-from .engine.gop import intra_qp_offset, lp_gop_table
+from .engine.gop import (FrameSpec, GopScheduler, intra_qp_offset,
+                         lp_gop_table)
 from .hevc.headers import write_pps, write_slice_header, write_sps, write_vps
 from .hevc.params import PPS, SPS, ShortTermRPS, SliceHeader
 from .hevc.sei import HASH_CHECKSUM, HASH_MD5, write_hash_sei
@@ -86,15 +92,11 @@ def build_pps(cfg: Config) -> PPS:
 
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    gop = "the GOP8 pyramid"
     intra = "the remaining intra variants"
     tiles = "tiles/multi-device"
     grid16 = "the 16-grid pipelines"
     for bad, what, entry in (
             (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
-            (cfg.gop_len > 1 and not cfg.gop_lowdelay,
-             "B-pyramid GOPs (--gop 2/4/8/16)", gop),
-            (cfg.open_gop, "--open-gop", gop),
             (cfg.input_bitdepth != 8, "10-bit", intra),
             (cfg.trskip_enable, "transform skip", intra),
             (cfg.lossless, "lossless", intra),
@@ -119,8 +121,9 @@ def check_config(cfg: Config) -> None:
 
 
 class Encoder:
-    """HEVC encoder: IDR + low-delay generalized-B or (--no-bipred) P
-    frames, optionally in the lp GOP, on the quadtree path."""
+    """HEVC encoder on the quadtree path: IDR + low-delay generalized-B
+    or (--no-bipred) P frames, optionally in the lp GOP (submit_frame /
+    finalize_frame), or the B pyramid (push_frame / flush)."""
 
     def __init__(self, cfg: Config, device="cuda") -> None:
         import torch
@@ -152,7 +155,7 @@ class Encoder:
             self._pipeline = MdInterPipeline(
                 self.sps.height, self.sps.width, cfg.qp, n_refs=self.n_refs,
                 smp=cfg.smp_enable or cfg.amp_enable, amp=cfg.amp_enable,
-                **kw)
+                bipred=cfg.bipred, **kw)
         else:
             from .models.intra_md import MdIntraPipeline
             self._pipeline = MdIntraPipeline(self.sps.height,
@@ -162,6 +165,18 @@ class Encoder:
         if cfg.gop_lowdelay and self.inter_enabled:
             self._lp = lp_gop_table(cfg.gop_len, *cfg.gop_lp,
                                     max(1, cfg.ref_frames))
+        # the B pyramid (--gop 2/4/8/16): display-order frames wait in
+        # _gop_buf until a span is complete, then are coded in coding
+        # order (kvazaar's input_frame_buffer reorder)
+        self.gop_enabled = (cfg.gop_len > 1 and self.inter_enabled
+                            and not cfg.gop_lowdelay)
+        if self.gop_enabled:
+            self._sched = GopScheduler(cfg.gop_len, cfg.intra_period,
+                                       base_qp=cfg.qp)
+            self._gop_buf: list[tuple] = []   # display-order pending
+            self._idr_disp = 0                # display index of POC 0
+            self._gop_lo = 0                  # POC of the last anchor
+            self._next_disp = 0
         # DPB: newest-first reconstructed reference pictures (device)
         self._dpb: list[dict] = []
         # TMVP collocated motion fields per coded reference frame
@@ -189,8 +204,8 @@ class Encoder:
 
     def submit_frame(self, y: np.ndarray, cb: np.ndarray,
                      cr: np.ndarray) -> dict:
-        """Dispatch a frame's device work; returns a pending token for
-        finalize_frame."""
+        """Dispatch a low-delay frame's device work; returns a pending
+        token for finalize_frame (see push_frame for the B pyramid)."""
         cfg = self.cfg
         is_idr = (cfg.intra_period == 1
                   or (cfg.intra_period > 1
@@ -199,13 +214,14 @@ class Encoder:
         if is_idr:
             self.poc = 0
             self._dpb.clear()
-        dpb_pocs = [e["poc"] for e in self._dpb]
-        is_ref, keep, qp_offset = True, None, 0
+        # generalized B (list 1 = list 0), or P with --no-bipred
+        use_b = not is_idr and cfg.bipred
         if self._lp is not None and not is_idr:
             # low-delay GOP: layered QP, the nearest lower-layer picture
             # and earlier keyframes as references, selective retention
             g = cfg.gop_len
             ent = self._lp[(self.poc - 1) % g]
+            dpb_pocs = [e["poc"] for e in self._dpb]
             l0 = []
             for delta in ent["ref_neg"]:
                 p = self.poc - delta
@@ -217,48 +233,132 @@ class Encoder:
                           reverse=True)[:cfg.ref_frames]
             keep = set(keys) | set(l0) | set(dpb_pocs[:1])
             l0 = l0[:max(1, cfg.ref_frames)]
-            is_ref = bool(ent["is_ref"])
-            qp_offset = ent["qp_offset"]
+            spec = FrameSpec(disp_idx=self.frame_num, poc=self.poc,
+                             is_ref=bool(ent["is_ref"]),
+                             slice_type=0 if use_b else 1,
+                             qp_offset=ent["qp_offset"],
+                             l0=l0, l1=list(l0) if use_b else [], keep=keep)
         else:
-            l0 = [] if is_idr else dpb_pocs
-            if is_idr and self._lp is not None:
-                qp_offset = intra_qp_offset(cfg.gop_len)
-        qp = cfg.qp + qp_offset
+            l0 = [] if is_idr else [e["poc"] for e in self._dpb]
+            spec = FrameSpec(
+                disp_idx=self.frame_num, poc=self.poc, is_idr=is_idr,
+                slice_type=2 if is_idr else 0 if use_b else 1,
+                qp_offset=(intra_qp_offset(cfg.gop_len)
+                           if is_idr and self._lp is not None else 0),
+                l0=l0, l1=list(l0) if use_b else [], keep=None)
+        self.frame_num += 1
+        self.poc += 1
+        return self._submit_spec(spec, y, cb, cr)
+
+    def _submit_spec(self, spec: FrameSpec, y, cb, cr) -> dict:
+        """Dispatch the device work of one planned frame: the IDR or CRA
+        picture through the intra program, a P frame on the union stack
+        (truncated to n_refs), a B frame on its list 0 and list 1 stacks;
+        then the reconstruction joins the DPB (the spec's retention set,
+        or the n_refs newest). Returns the pending token."""
         if self.pad_w or self.pad_h:
             y = np.pad(y, ((0, self.pad_h), (0, self.pad_w)), mode="edge")
             cb = np.pad(cb, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
             cr = np.pad(cr, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
-        # generalized B (list 1 = list 0), or P with --no-bipred
-        use_b = cfg.bipred
-        meta = {"is_idr": is_idr, "poc": self.poc, "qp": qp,
-                "frame_num": self.frame_num, "y": y, "cb": cb, "cr": cr,
-                "slice_type": 2 if is_idr else 0 if use_b else 1,
-                "l0": l0, "l1": list(l0) if use_b else [], "is_ref": is_ref}
-        if is_idr:
-            meta["dev"] = self._pipeline.submit(y, cb, cr, qp=qp)
+        qp = self.cfg.qp + spec.qp_offset
+        # the union of both lists, list 0 first: the P stack, and what the
+        # slice writers map a one-list reference index through
+        union = list(spec.l0) + [p for p in spec.l1 if p not in spec.l0]
+        meta = {"is_idr": spec.is_idr, "poc": spec.poc, "qp": qp,
+                "frame_num": spec.disp_idx, "y": y, "cb": cb, "cr": cr,
+                "slice_type": spec.slice_type, "is_ref": spec.is_ref,
+                "l0": list(spec.l0), "l1": list(spec.l1), "union": union,
+                "keep": spec.keep, "nal": spec.nal}
+        by_poc = {e["poc"]: e for e in self._dpb}
+
+        def stack(pocs):
+            refs = [by_poc[p] for p in pocs]
+            return ([e["y"] for e in refs], [e["cb"] for e in refs],
+                    [e["cr"] for e in refs])
+        if spec.slice_type == 0:
+            s0 = stack(spec.l0)
+            # one set of planes serves both lists when they are equal
+            s1 = s0 if spec.l1 == spec.l0 else stack(spec.l1)
+            meta["dev"] = self._pipeline.submit_inter_b(
+                y, cb, cr, s0, s1, spec.l0, spec.l1, qp=qp)
+        elif spec.slice_type == 1:
+            meta["dev"] = self._pipeline.submit_inter(
+                y, cb, cr, *stack(union), ref_pocs=union, qp=qp)
         else:
-            by_poc = {e["poc"]: e for e in self._dpb}
-            refs = [by_poc[p] for p in l0]
-            lists = ([e["y"] for e in refs], [e["cb"] for e in refs],
-                     [e["cr"] for e in refs])
-            if use_b:
-                meta["dev"] = self._pipeline.submit_inter_b(
-                    y, cb, cr, lists, lists, l0, l0, qp=qp)
-            else:
-                meta["dev"] = self._pipeline.submit_inter(
-                    y, cb, cr, *lists, ref_pocs=l0, qp=qp)
-        if self.inter_enabled and is_ref:
-            self._push_ref({"poc": self.poc, "y": meta["dev"]["rec_y"],
+            meta["dev"] = self._pipeline.submit(y, cb, cr, qp=qp)
+        if self.inter_enabled and spec.is_ref:
+            self._push_ref({"poc": spec.poc, "y": meta["dev"]["rec_y"],
                             "cb": meta["dev"]["rec_cb"],
-                            "cr": meta["dev"]["rec_cr"]}, keep)
+                            "cr": meta["dev"]["rec_cr"]}, spec.keep)
         # the RPS names the retained DPB (after this frame) and the
         # frame's own references
         meta["dpb_pocs"] = [e["poc"] for e in self._dpb]
-        self.frame_num += 1
-        self.poc += 1
         return meta
+
+    # -- the B pyramid's feed --------------------------------------------
+
+    def push_frame(self, y: np.ndarray, cb: np.ndarray,
+                   cr: np.ndarray) -> list[tuple[bytes, dict]]:
+        """Feed one display-order frame; returns zero or more coded
+        frames in coding order. Without a B pyramid this encodes at
+        once."""
+        if not self.gop_enabled:
+            return [self.encode_frame(y, cb, cr)]
+        cfg = self.cfg
+        d = self._next_disp
+        self._next_disp += 1
+        if d == 0 or (not cfg.open_gop and cfg.intra_period > 0
+                      and d - self._idr_disp == cfg.intra_period):
+            # a closed GOP's period boundary is an IDR reset (frames
+            # still buffered are coded after it, relative to it, as the
+            # JAX package does: ROADMAP.md queue 3); with --open-gop the
+            # boundary is a CRA anchor inside plan_span instead
+            spec = self._sched.plan_idr(d)
+            self._idr_disp = d
+            self._gop_lo = 0
+            self._dpb.clear()
+            return [self.finalize_frame(self._submit_spec(spec, y, cb, cr))]
+        self._gop_buf.append((y, cb, cr))
+        if len(self._gop_buf) == cfg.gop_len:
+            return self._encode_span()
+        return []
+
+    def flush(self) -> list[tuple[bytes, dict]]:
+        """Encode the buffered tail as a run of power-of-two pyramids (7
+        frames: spans of 4, 2 and 1), so that no anchor lies a whole tail
+        away from its reference."""
+        if not self.gop_enabled or not self._gop_buf:
+            return []
+        out: list[tuple[bytes, dict]] = []
+        while self._gop_buf:
+            k = 1
+            while k * 2 <= len(self._gop_buf):
+                k *= 2
+            rest = self._gop_buf[k:]
+            self._gop_buf = self._gop_buf[:k]
+            out.extend(self._encode_span())
+            self._gop_buf = rest
+        return out
+
+    def _encode_span(self) -> list[tuple[bytes, dict]]:
+        """Code the buffered frames as one span after the last anchor:
+        every frame's device work is queued first (the B frames take the
+        anchor's reconstruction on the device), then each is entropy
+        coded in coding order."""
+        cfg = self.cfg
+        lo = self._gop_lo
+        hi = lo + len(self._gop_buf)
+        intra_anchor = (cfg.open_gop and cfg.intra_period > 0
+                        and hi % cfg.intra_period == 0)
+        specs = self._sched.plan_span(self._idr_disp, lo, hi,
+                                      intra_anchor=intra_anchor)
+        frames = {lo + 1 + i: f for i, f in enumerate(self._gop_buf)}
+        self._gop_buf = []
+        self._gop_lo = hi
+        metas = [self._submit_spec(s, *frames[s.poc]) for s in specs]
+        return [self.finalize_frame(m) for m in metas]
 
     def encode_frame(self, y, cb, cr) -> tuple[bytes, dict]:
         """Encode one frame; returns (annexb bytes, info dict)."""
@@ -331,12 +431,12 @@ class Encoder:
                 and all("mv" in e for e in re0 + re1) else 0)
             writer = MdPSliceWriter(self.sps, self.pps, sh, decisions, re0,
                                     meta["poc"], ref_entries_l1=re1,
-                                    union_pocs=l0)
+                                    union_pocs=meta["union"])
             if native.available() and "part8" not in decisions:
                 data, _, mv4, refpoc4 = native.encode_md_slice_pb(
                     decisions, sh, writer.helper.ref_list, meta["poc"],
                     False, sdh=sdh, ref_entries_l1=writer.helper.ref_list1,
-                    union_pocs=l0,
+                    union_pocs=meta["union"],
                     sao_packed=native.pack_sao(decisions) if sao else None,
                     sao_cmax=(1 << (min(self.sps.bit_depth_luma, 10)
                                     - 5)) - 1,
@@ -367,6 +467,9 @@ class Encoder:
         cfg = self.cfg
         is_idr = meta["is_idr"]
         nal_type = (NAL_IDR_W_RADL if is_idr else
+                    NAL_CRA_NUT if meta["nal"] == "CRA" else
+                    (NAL_RASL_R if meta["is_ref"] else NAL_RASL_N)
+                    if meta["nal"] == "RASL" else
                     NAL_TRAIL_R if meta["is_ref"] else NAL_TRAIL_N)
         sh = self._slice_header(meta)
         decisions = self._pipeline.materialize(meta["dev"])
@@ -447,12 +550,22 @@ class Encoder:
 
 def encode_sequence(cfg: Config, frames, encoder: "Encoder | None" = None,
                     device="cuda") -> tuple[bytes, list[dict]]:
-    """Encode an iterable of (y, cb, cr) frames to an Annex-B stream.
-    Frame N+1's device work is queued before frame N's host entropy
+    """Encode an iterable of display-order (y, cb, cr) frames to an
+    Annex-B stream. A B pyramid goes through push_frame/flush; otherwise
+    frame N+1's device work is queued before frame N's host entropy
     coding (the reference pictures stay on the device)."""
     enc = encoder if encoder is not None else Encoder(cfg, device=device)
     out = b""
     infos = []
+    if enc.gop_enabled:
+        for f in frames:
+            for chunk, info in enc.push_frame(*f):
+                out += chunk
+                infos.append(info)
+        for chunk, info in enc.flush():
+            out += chunk
+            infos.append(info)
+        return out, infos
     pending = None
     for (y, cb, cr) in frames:
         meta = enc.submit_frame(y, cb, cr)

@@ -15,8 +15,10 @@ reconstruct cell by cell with their PUs' motion.
 
 B slices (submit_inter_b), with one or two reference pictures a list
 (the stacks are padded to n_refs_b = min(2, n_refs) by repeating their
-last picture), bi-prediction on, no SMP/AMP (the reference's B program
-has none):
+last picture); list 1 is list 0 on the low-delay path and holds the
+future pictures in a B pyramid; with --no-bipred (B pictures of a
+pyramid) every block predicts from one list; no SMP/AMP (the reference's
+B program has none):
 
 1. hierarchical ME, per list and reference picture: an exhaustive +-24
    coarse sweep at 1/4 resolution gives a 16x16-block motion field; every
@@ -88,7 +90,7 @@ class MdInterPipeline(MdIntraPipeline):
     def __init__(self, height: int, width: int, qp: int,
                  n_refs: int = 1, pu_depth_inter: tuple[int, int] = (0, 3),
                  subme: int = 4, smp: bool = False, amp: bool = False,
-                 **kw) -> None:
+                 bipred: bool = True, **kw) -> None:
         for bad, what, entry in (
                 (tuple(pu_depth_inter) != (0, 3),
                  "--pu-depth-inter other than 0-3",
@@ -102,6 +104,9 @@ class MdInterPipeline(MdIntraPipeline):
         # repeating the last picture)
         self.n_refs = max(1, n_refs)
         self.n_refs_b = min(2, self.n_refs)
+        # --bipred: the B program's bi-prediction candidates (the exact
+        # bi-average of the lists' winners and the cross-reference pair)
+        self.bipred = bool(bipred)
         # --smp/--amp: rectangular PUs in P slices (the B program has none)
         self.smp = bool(smp or amp)
         self.amp = bool(amp)
@@ -463,9 +468,12 @@ class MdInterPipeline(MdIntraPipeline):
         cbi = satd_bi.to(F32) + lam_satd * (
             bits0 + bits1 + refb(r0, nl0) + refb(r1, nl1) + idc_b)
         uni = torch.where(c0 <= c1, 1, 2)
-        dirn = torch.where((cbi <= c0) & (cbi <= c1), 3, uni).to(I32)
+        dirn = (torch.where((cbi <= c0) & (cbi <= c1), 3, uni)
+                if self.bipred else uni).to(I32)
+        # the AMVP cost the merge candidates must beat counts the bi
+        # candidate even with --no-bipred, as the reference does
         acost = torch.minimum(torch.minimum(c0, c1), cbi)
-        if len(me0) >= 2 and len(me1) >= 2:
+        if self.bipred and len(me0) >= 2 and len(me1) >= 2:
             # cross-reference bi candidate: list 0's winner on picture 0
             # and list 1's on picture 1 (the lists' own picks coincide
             # when both hold the same pictures), priced on the average of

@@ -10,10 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (LOWDELAY, P_SMP, TOOL_LDB,  # noqa: E402
-                        compare_devices, kernel_errors, kernel_inputs,
-                        mixed_frames, split_motion_frames, tie_inputs,
-                        tie_planes)
+from chip_smoke import (GOP8, LOWDELAY, OPEN_GOP, P_SMP,  # noqa: E402
+                        TOOL_LDB, TOOL_ROW, compare_devices,
+                        kernel_errors, kernel_inputs, mixed_frames,
+                        split_motion_frames, tie_inputs, tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -140,3 +140,29 @@ def test_cuda_p_smp_equals_cpu():
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 3 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(TOOL_ROW, **GOP8), OPEN_GOP],
+                         ids=["gop8_tools", "open_gop"])
+def test_cuda_gop_equals_cpu(opts):
+    """The B pyramid gives the CPU path's stream and maps on the GPU over
+    12 frames fed in display order (bench scenario 3 with the tool row:
+    IDR, P 8, B 4 2 1 3 6 5 7, P 10, B 9, P 11; the open GOP: IDR, CRA 8
+    with seven RASL pictures, P 10, B 9, P 11), with 8 me_refine and 12
+    me_eval launches a B frame, 4 me_refine and 8 one-list me_eval
+    launches a P anchor."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches,
+              me.me_eval.one_list_launches)
+    stream, rows = compare_devices(mixed_frames(12, W, H), W, H, **opts)
+    n_p = 3 if not opts.get("open_gop") else 2
+    n_b = 8
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1],
+            me.me_eval.one_list_launches - before[2]) == (
+                8 * n_b + 4 * n_p, 12 * n_b + 8 * n_p, 8 * n_p)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 12 and all(p.hash_ok for p in pics)

@@ -79,8 +79,6 @@ def test_encoder_targets_cuda_by_default():
 
 
 UNSUPPORTED = {
-    "gop8": dict(gop_len=8), "gop4_pyramid": dict(gop_len=4),
-    "open_gop": dict(gop_len=8, open_gop=True),
     "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
     "lossless": dict(lossless=True), "wpp": dict(wpp=True),
     "scaling": dict(scaling_list="default"), "vaq": dict(vaq=2),
@@ -106,16 +104,20 @@ TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
                         ref_frames=2),
          "no_bipred": dict(bipred=False),
          "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
-         "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False)}
+         "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False),
+         "gop8": dict(gop_len=8), "gop4_pyramid": dict(gop_len=4),
+         "open_gop": dict(gop_len=8, open_gop=True)}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_options_encode_and_decode(name):
     """Each option of the tool row, two references a list, the low-delay
-    GOP, the P program (--no-bipred) and SMP/AMP build on cuda unless the
-    CPU is asked for, and encode IDR + B (P with --no-bipred; --smp/--amp
-    change only the SPS under bi-prediction) at 128x64 on the CPU (both
-    pipelines), hash-exact in the port's decoder."""
+    GOP, the P program (--no-bipred), SMP/AMP and the B pyramid (closed
+    and open GOP) build on cuda unless the CPU is asked for, and encode
+    IDR + B (P with --no-bipred, and in a pyramid, whose one-frame tail
+    is a P anchor; --smp/--amp change only the SPS under bi-prediction)
+    at 128x64 on the CPU (both pipelines), hash-exact in the port's
+    decoder."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
@@ -134,7 +136,9 @@ def test_tool_options_encode_and_decode(name):
         stream, infos = encode_sequence(cfg, frames, device="cpu")
     finally:
         torch.set_num_threads(n_threads)
-    assert [i["slice_type"] for i in infos] == [2, 0 if cfg.bipred else 1]
+    pyramid = cfg.gop_len > 1 and not cfg.gop_lowdelay
+    assert [i["slice_type"] for i in infos] == [
+        2, 0 if cfg.bipred and not pyramid else 1]
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
 

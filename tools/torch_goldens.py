@@ -32,10 +32,23 @@ and in tests/data/torch_golden_p.npz, the P program (--no-bipred):
   included where SMP is on), as above;
 - on cross_inputs with a two-picture stack, the merge alignment
   (`pmerge<n>_*`) and the P inter leaf (`pleaf<n>_*`) at n = 16 and 64;
-- on split_inputs, the SMP/AMP leaf (`psmp<n>_*`) at n = 16 and 32.
+- on split_inputs, the SMP/AMP leaf (`psmp<n>_*`) at n = 16 and 32;
+
+and in tests/data/torch_golden_gop.npz, the B pyramid (bench.py's
+scenario 3, --gop 2/4/8/16, closed and open GOP), fed display order
+through push_frame/flush:
+
+- per GOP_CONFIGS entry the stream, every coded frame's maps (coding
+  order) and its plan entry (`<name>_plan`, JSON) on gop_frames at
+  128x64;
+- the frame plans of GOP_PLANS (`plan_<name>`: per coded frame the
+  display index, POC, slice and NAL type, QP, l0, l1, the retention set
+  and the retained DPB), through stand-in pipelines (no device work);
+- the B inter leaf at n = 16 and 64 with distinct two-picture stacks a
+  list, bi-prediction on and off (`gleaf<b><n>_*`), on gop_leaf_inputs.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p] (every file when no argument is given).
+[slice|tools|lowdelay|p|gop] (every file when no argument is given).
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ OUT_TOOLS = os.path.join(ROOT, "tests", "data", "torch_golden_tools.npz")
 OUT_LOWDELAY = os.path.join(ROOT, "tests", "data",
                             "torch_golden_lowdelay.npz")
 OUT_P = os.path.join(ROOT, "tests", "data", "torch_golden_p.npz")
+OUT_GOP = os.path.join(ROOT, "tests", "data", "torch_golden_gop.npz")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
@@ -92,6 +106,30 @@ P_CONFIGS = {
              "slice", 6),
 }
 SMP_W, SMP_H = 192, 128
+# the B pyramid: (configuration, frames). "g8" is bench.py's scenario 3
+# (bench.py:252, -p 24 --gop 8) with the tool row of scenario 1 at QP 27
+# (bench.py:41-42, 123); "open" --gop 8 -p 8 --open-gop (a CRA with
+# seven RASL pictures); "ref2" --gop 4 -p 0 --ref 2 (two pictures a
+# list, different in l0 and l1); "nobi" --gop 4 -p 0 --no-bipred
+GOP_CONFIGS = {
+    "g8": (dict(qp=27, intra_period=24, gop_len=8, deblock_enable=True,
+                sao_type="full", rdoq_enable=True,
+                signhide_enable=False), 12),
+    "open": (dict(gop_len=8, intra_period=8, open_gop=True), 12),
+    "ref2": (dict(gop_len=4, intra_period=0, ref_frames=2), 9),
+    "nobi": (dict(gop_len=4, intra_period=0, bipred=False), 5),
+}
+# frame plans through stand-in pipelines, --ref 4: (configuration,
+# frames). Closed GOPs at intra period 2g cross a period boundary, open
+# ones at period g code CRA pictures; "p8g8" is the period-boundary order
+# of the reference (ROADMAP.md queue 3).
+GOP_PLANS = {
+    **{f"g{g}": (dict(gop_len=g, intra_period=2 * g, ref_frames=4),
+                 2 * g + 3) for g in (2, 4, 8, 16)},
+    **{f"g{g}_open": (dict(gop_len=g, intra_period=g, open_gop=True,
+                           ref_frames=4), 2 * g + 3) for g in (2, 4, 8, 16)},
+    "p8g8": (dict(gop_len=8, intra_period=8), 9),
+}
 PLAN_REFS = (1, 2, 4)
 PLAN_FRAMES = 9
 LEAF_QP = 22
@@ -103,6 +141,24 @@ def slice_frames(n: int = N_FRAMES) -> list:
     leaves of several sizes."""
     from chip_smoke import mixed_frames
     return mixed_frames(n, W, H)
+
+
+def gop_frames(n: int, w: int = W, h: int = H) -> list:
+    """The moving content of tests/test_gop_md.py (`_frames`): a ramp
+    that pans 2 px a frame plus fresh noise in 0..11, with chroma
+    changing a little a frame."""
+    rng = np.random.default_rng(5)
+    base = (np.arange(w * h).reshape(h, w) % 256).astype(np.uint8)
+    out = []
+    for i in range(n):
+        y = np.roll(base, i * 2, axis=1)
+        y = (y.astype(np.int32)
+             + rng.integers(0, 12, (h, w))).clip(0, 255).astype(np.uint8)
+        cb = np.full((h // 2, w // 2), 100 + i, np.uint8)
+        cr = ((np.arange(h // 2 * w // 2).reshape(h // 2, w // 2) + 3 * i)
+              % 256).astype(np.uint8)
+        out.append((y, cb, cr))
+    return out
 
 
 def stage_inputs() -> dict:
@@ -204,6 +260,133 @@ def plan_entry(meta: dict) -> dict:
             "l1": [int(p) for p in meta["l1"]],
             "is_ref": bool(meta.get("is_ref", True)),
             "dpb_pocs": [int(p) for p in meta["dpb_pocs"]]}
+
+
+def gop_plan_entry(meta: dict) -> dict:
+    """plan_entry plus the B pyramid's fields: display index, slice
+    type, NAL kind ("IDR", "CRA", "RASL" or ""), the retention set."""
+    keep = meta.get("keep")
+    return dict(plan_entry(meta), disp=int(meta["frame_num"]),
+                slice_type=int(meta["slice_type"]),
+                nal="IDR" if meta["is_idr"] else meta.get("nal", ""),
+                keep=None if keep is None else sorted(int(p) for p in keep))
+
+
+class PlanStub:
+    """Stands in for an encoder's pipelines (the JAX package's or the
+    port's): no device work; the reconstruction is the source."""
+
+    def submit(self, y, cb, cr, qp=None, **kw):
+        return {"rec_y": y, "rec_cb": cb, "rec_cr": cr}
+
+    def submit_inter(self, y, cb, cr, *refs, ref_pocs=None, qp=None):
+        return self.submit(y, cb, cr)
+
+    def submit_inter_b(self, y, cb, cr, l0, l1, l0_pocs, l1_pocs, qp=None):
+        return self.submit(y, cb, cr)
+
+
+def drive_plan(enc, frames) -> list[dict]:
+    """Feed frames to enc (the JAX package's Encoder or the port's) in
+    display order through push_frame/flush with its pipelines replaced by
+    PlanStub and finalize_frame by a recorder; returns the coded frames'
+    gop_plan_entry in coding order."""
+    stub = PlanStub()
+    enc._pipeline = stub
+    if hasattr(enc, "_inter_pipeline"):
+        enc._inter_pipeline = stub
+    plan = []
+
+    def finalize(meta):
+        plan.append(gop_plan_entry(meta))
+        return b"", {}
+    enc.finalize_frame = finalize
+    for f in frames:
+        enc.push_frame(*f)
+    enc.flush()
+    return plan
+
+
+def jax_gop_plan(name: str) -> list[dict]:
+    from kvazaar_tpu.api import Encoder
+    from kvazaar_tpu.cfg import Config
+    cfg, n = GOP_PLANS[name]
+    return drive_plan(Encoder(Config(width=W, height=H, **cfg)),
+                      gop_frames(n))
+
+
+def jax_gop_stream(frames, **cfg) -> tuple[bytes, list[dict], list[dict]]:
+    """Encode display-order frames with kvazaar_tpu through
+    encode_sequence (push_frame/flush); returns (stream, decisions,
+    plan), the last two per coded frame in coding order."""
+    from kvazaar_tpu.api import Encoder, encode_sequence
+    from kvazaar_tpu.cfg import Config
+    enc = Encoder(Config(width=frames[0][0].shape[1],
+                         height=frames[0][0].shape[0], **cfg))
+    decs, plan = [], []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        plan.append(gop_plan_entry(meta))
+        decs.append({k: np.asarray(v) for k, v in
+                     enc._last_decisions.items() if k in MAP_KEYS})
+        return out
+    enc.finalize_frame = record
+    stream, _ = encode_sequence(enc.cfg, frames, encoder=enc)
+    return stream, decs, plan
+
+
+def gop_leaf_inputs() -> dict:
+    """Inputs of the distinct-list leaf goldens at 128x64: four pictures
+    that share slice frame 0's content under independent +-12 noise, two
+    a list, and a source of that content with +-2 noise, so averaging
+    a list 0 picture with a list 1 picture predicts it better than
+    either alone."""
+    rng = np.random.RandomState(22)
+    base = [p.astype(np.int32) for p in slice_frames(1)[0]]
+
+    def noisy(amp):
+        return tuple(np.clip(p + rng.randint(-amp, amp + 1, p.shape), 0,
+                             255).astype(np.uint8) for p in base)
+    return {"src": noisy(2), "l0": (noisy(12), noisy(12)),
+            "l1": (noisy(12), noisy(12))}
+
+
+def jax_gop_leaves(tags=("b", "u")) -> dict:
+    """The JAX B inter leaf at n = 16 and 64, list 0 and list 1 on their
+    own two-picture stacks of gop_leaf_inputs (a coarse field and ME set
+    per list), with bi-prediction on (tag "b": `gleafb<n>_*`) and off
+    ("u": `gleafu<n>_*`), QP LEAF_QP."""
+    import jax
+    import jax.numpy as jnp
+    from kvazaar_tpu.models.inter_md import MdInterPipeline
+    inp = gop_leaf_inputs()
+    src = tuple(jnp.asarray(p, jnp.int32) for p in inp["src"])
+    stacks = [tuple(jnp.stack([jnp.asarray(r[c], jnp.int32)
+                               for r in inp[lst]]) for c in range(3))
+              for lst in ("l0", "l1")]
+    out = {}
+    for tag in tags:
+        pipe = MdInterPipeline(H, W, LEAF_QP, n_refs=2, b_slices=True,
+                               deblock=True, bipred=tag == "b")
+        lam = pipe.lam2[0]
+        for n, t, tc in ((16, pipe.t16, pipe.t8), (64, pipe.t32, pipe.t16)):
+            def leaf(s_y, s_cb, s_cr, l0, l1, n=n, t=t, tc=tc, pipe=pipe,
+                     lam=lam):
+                f0 = [pipe._coarse_field(s_y, l0[0][k]) for k in range(2)]
+                f1 = [pipe._coarse_field(s_y, l1[0][k]) for k in range(2)]
+                me0 = pipe._me_kernel_sizes(s_y, l0[0], f0, None)
+                me1 = pipe._me_kernel_sizes(s_y, l1[0], f1, None)
+                return pipe._inter_leaf_b(s_y, s_cb, s_cr, l0, l1, f0, f1,
+                                          n, t, tc, lam, me0=me0[n],
+                                          me1=me1[n])
+            res = jax.jit(pipe._with_consts(leaf))(pipe.consts, *src,
+                                                   *stacks)
+            for k, v in zip(("mv0", "r0", "mv1", "r1", "dir", "cost",
+                             "pred_y", "pred_cb", "pred_cr"), res):
+                out[f"gleaf{tag}{n}_{k}"] = np.asarray(v)
+    return out
 
 
 def cross_inputs() -> dict:
@@ -388,8 +571,46 @@ def write_p_golden(path: str = OUT_P) -> None:
     _save(path, data)
 
 
+def _gop_part(part: str) -> dict:
+    """The arrays of one part of the GOP golden: a GOP_CONFIGS stream,
+    the distinct-list leaves with bi-prediction on ("leaves_b") or off
+    ("leaves_u"), or the frame plans ("plans")."""
+    import json
+    import time
+    t = time.perf_counter()
+    if part == "plans":
+        data = {f"plan_{name}": np.array(json.dumps(jax_gop_plan(name)))
+                for name in GOP_PLANS}
+    elif part.startswith("leaves_"):
+        data = jax_gop_leaves((part[-1],))
+    else:
+        cfg, n = GOP_CONFIGS[part]
+        stream, decs, plan = jax_gop_stream(gop_frames(n), **cfg)
+        data = _stream_arrays(part + "_", stream, decs)
+        data[f"{part}_plan"] = np.array(json.dumps(plan))
+    print(f"{part}: {time.perf_counter() - t:.1f} s", flush=True)
+    return data
+
+
+def write_gop_golden(path: str = OUT_GOP, workers: int = 2) -> None:
+    """Each part in a fresh process, `workers` at a time: one process
+    that compiles every program of the file runs out of the memory that
+    XLA's CPU backend maps for compiled code."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    parts = ["ref2", "g8", "open", "nobi", "leaves_b", "leaves_u", "plans"]
+    data = {}
+    with ProcessPoolExecutor(workers, max_tasks_per_child=1,
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as ex:
+        for arrays in ex.map(_gop_part, parts):
+            data.update(arrays)
+    _save(path, data)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p"]
+    which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop"]
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
-         "lowdelay": write_lowdelay_golden, "p": write_p_golden}[w]()
+         "lowdelay": write_lowdelay_golden, "p": write_p_golden,
+         "gop": write_gop_golden}[w]()
