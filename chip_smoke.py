@@ -62,9 +62,22 @@ Phases (each prints its lines; any failure exits non-zero):
    NAL type, QP, l0, l1, bytes, PSNR, waves and times; then --gop 8 -p 8
    --open-gop at 416x240 (12 frames: IDR, CRA 8 with seven RASL
    pictures, P 10, B 9, P 11) on cuda and on the CPU: the same stream and
-   maps, with CRA, RASL_R and RASL_N pictures.
+   maps, with CRA, RASL_R and RASL_N pictures;
+10. the preset ladder: --preset medium (NxN 4x4 leaves, GOP 16, --ref 4,
+   SAO full and RDOQ; bench.py's comparison point) on 5 frames at
+   1920x1080 and QP 22 fed through push_frame/flush (IDR, P 4, B 2 1 3:
+   64 me_refine, 36 pair and 8 one-list me_eval launches), hash-exact,
+   with NxN cells in the IDR; per frame as in phase 9 and the cells by
+   size code (4 NxN, 8, 16, 32, 64); then, each on cuda and on the CPU
+   with the same streams and maps: every intra depth (--pu-depth-intra
+   0-4, --rd 3, the tool row with sign hiding) on one frame of half
+   detailed, half flat content at 416x240, at least 2% of its cells NxN
+   and 5% 64x64 leaves; and ultrafast, veryfast, fast, medium, slow and
+   placebo at 416x240 (3 frames each).
+The hash-exact decodes of phases 4-10's encodes run in a worker process
+beside the later phases, and are checked after phase 10.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6, 7, 8 and 9; me_eval's pair and
+over the encodes of phases 4, 6, 7, 8, 9 and 10; me_eval's pair and
 one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
@@ -117,6 +130,19 @@ P_SMP = dict(bipred=False, smp_enable=True, amp_enable=True, ref_frames=2)
 # tool row; and the open-GOP pyramid (a CRA picture every 8 frames)
 GOP8 = dict(intra_period=24, gop_len=8)
 OPEN_GOP = dict(intra_period=8, gop_len=8, open_gop=True)
+# the presets of phase 10's 416x240 CUDA-vs-CPU runs
+SMALL_PRESETS = ("ultrafast", "veryfast", "fast", "medium", "slow",
+                 "placebo")
+# phase 10's intra leaves: every intra depth (64x64 leaves to NxN 4x4),
+# the --rd ladder at its deepest and the tool row with sign hiding, at QP
+# 27 on leaf_frames (the configuration and content of the CPU tests'
+# golden "rd3", tools/torch_goldens.py PRESET_CONFIGS); each frame must
+# code at least these shares of its 8x8 cells as NxN (size code 4) and
+# as 64x64 leaves
+INTRA_LEAVES = dict(qp=27, intra_period=1, pu_depth_intra=(0, 4), rd=3,
+                    sao_type="full", rdoq_enable=True,
+                    signhide_enable=True)
+LEAF_SHARES = {4: 0.02, 64: 0.05}
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -124,6 +150,8 @@ NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    for pool in _POOL:
+        pool.shutdown(wait=True, cancel_futures=True)
     sys.exit(1)
 
 
@@ -174,6 +202,34 @@ def mixed_frames(n, w, h):
     for i, (y, cb, cr) in enumerate(synth_frames(n, w, h)):
         _fresh_patch(y, cb, i, rng)
         out.append((y, cb, cr))
+    return out
+
+
+def leaf_frames(n, w, h):
+    """All-intra content where NxN 4x4 PUs and 64x64 leaves both win: in
+    the left half a mosaic of 4x4 directional gradients (one 8x8 mode
+    cannot fit its four quadrants), in the right half a flat top (every
+    intra mode predicts it exactly: SATD ties) over a shallow ramp, with
+    flat chroma beside a chroma ramp (tools/torch_goldens.py
+    intra_frames("halfflat"))."""
+    rng = np.random.RandomState(1234)
+    out = []
+    for i in range(n):
+        y = np.zeros((h, w), np.int32)
+        for by in range(0, h, 4):
+            for bx in range(0, w, 4):
+                k = rng.randint(4)
+                g = np.add.outer(np.arange(4) * [13, -13, 0, 29][k],
+                                 np.arange(4) * [0, 23, -23, -17][k])
+                y[by:by + 4, bx:bx + 4] = rng.randint(0, 200) + g
+        cb = np.full((h // 2, w // 2), 128, np.int32)
+        cr = np.full((h // 2, w // 2), 128, np.int32)
+        xs = np.arange(w - w // 2)
+        y[:h // 2, w // 2:] = 117 + i
+        y[h // 2:, w // 2:] = 90 + (xs // 3)[None, :] + 2 * i
+        cr[:, w // 4:] = 100 + np.arange(w // 4)[None, :] // 2
+        out.append((y.clip(0, 255).astype(np.uint8), cb.astype(np.uint8),
+                    cr.astype(np.uint8)))
     return out
 
 
@@ -345,8 +401,9 @@ def compare_devices(frames, w, h, **cfg):
     configuration cfg (Config options; the defaults when empty) on cuda
     and on the CPU, where the kernels' plain versions run. Returns the
     cuda stream and, per coded frame (coding order), whether both chunks
-    are identical, the decision maps that differ, and the waves of the
-    wavefront on each device."""
+    are identical, the decision maps that differ, the waves of the
+    wavefront on each device, and the cuda encode's 8x8 cells inside the
+    picture by size code."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     res = {}
@@ -367,7 +424,10 @@ def compare_devices(frames, w, h, **cfg):
     rows = [{"same_stream": ca == cb,
              "differing_maps": [k for k in ma if k in mb
                                 and not np.array_equal(ma[k], mb[k])],
-             "waves": (wa, wb)}
+             "waves": (wa, wb),
+             "sizes": dict(zip(*(a.tolist() for a in np.unique(
+                 ma["size_map8"][:-(-h // 8), :-(-w // 8)],
+                 return_counts=True))))}
             for (ca, ma, wa), (cb, mb, wb) in zip(res["cuda"], res["cpu"])]
     return b"".join(c for c, _, _ in res["cuda"]), rows
 
@@ -656,9 +716,10 @@ def encode_timed(torch, me, cfg, frames, label):
     slice writers (SMP slices take the Python writer), each B frame
     launched me_refine 8 times a reference picture of its stacks (4
     sizes x 2 lists) and me_eval 12 times, each P frame me_refine 4 times
-    a picture of its stack and me_eval 8 times in its one-list mode, and
-    the stream decodes hash-exactly to the encoder's reconstruction, in
-    display order. Returns (launches, infos, per coded frame the
+    a picture of its stack and me_eval 8 times in its one-list mode.
+    Queues the stream's decode (decode_check), which check_decodes
+    requires to be hash-exact, in display order and equal to the
+    encoder's reconstruction. Returns (launches, infos, per coded frame the
     reference maps inter8, dir8, ref8, ref8b and part8 where present,
     with the frame's plan: disp, l0, l1, nal)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
@@ -677,7 +738,8 @@ def encode_timed(torch, me, cfg, frames, label):
     def record(meta):
         out = finalize(meta)
         m = {k: np.asarray(enc._last_decisions[k])
-             for k in ("inter8", "dir8", "ref8", "ref8b", "part8")
+             for k in ("size_map8", "inter8", "dir8", "ref8", "ref8b",
+                       "part8")
              if k in enc._last_decisions}
         m.update(disp=meta["frame_num"], l0=list(meta["l0"]),
                  l1=list(meta["l1"]),
@@ -739,23 +801,65 @@ def encode_timed(torch, me, cfg, frames, label):
     if enc.native_slices != len(infos) - smp:
         fail(f"{label}: the native slice writers were not used for every "
              "frame without SMP")
+    recon = [tuple(np.asarray(a) for a in i["recon_out"]) for i in infos]
+    _DECODES.append((label, len(frames), decoder_pool().submit(
+        decode_check, stream, recon, [m["disp"] for m in maps])))
+    return launches, infos, maps
+
+
+# The hash-exact decodes of the encode_timed runs (the Python decoder,
+# 1-3 s a 1080p frame) run in one worker process beside the next phases;
+# main() waits for them and checks them before it reports.
+_DECODES: list = []
+_POOL: list = []
+
+
+def decoder_pool():
+    if not _POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL.append(ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")))
+    return _POOL[0]
+
+
+def decode_check(stream, recon, disp):
+    """Decode stream (coded in the order of recon, the encoder's cropped
+    planes per coded frame, and disp, their display indices): returns
+    each picture's hash_ok, the display indices in output order, whether
+    every decoded picture equals the encoder's reconstruction, and the
+    seconds it took."""
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     t = time.perf_counter()
     pics = HEVCDecoder().decode(stream)
-    ok = [p.hash_ok for p in pics]
-    print(f"  decode: {len(pics)} frames hash_ok {ok} "
-          f"({time.perf_counter() - t:.1f} s)", flush=True)
-    if len(pics) != len(frames) or not all(ok):
-        fail(f"{label}: the stream does not decode hash-exactly")
-    shown = output_order(pics, [m["disp"] for m in maps])
-    if shown != list(range(len(frames))):
-        fail(f"{label}: decoded output order {shown} is not display order")
-    for p, i in zip(pics, infos):
-        if not all(np.array_equal(a, b) for a, b in
-                   zip(p.planes, i["recon_out"])):
+    same = len(pics) == len(recon) and all(
+        np.array_equal(a, b)
+        for p, r in zip(pics, recon) for a, b in zip(p.planes, r))
+    return ([p.hash_ok for p in pics], output_order(pics, disp), same,
+            time.perf_counter() - t)
+
+
+def check_decodes() -> None:
+    """Wait for the decodes of the encode_timed runs, print them, and fail
+    unless each stream decodes hash-exactly, in display order, to the
+    encoder's reconstruction."""
+    t = time.perf_counter()
+    for label, n, fut in _DECODES:
+        ok, shown, same, secs = fut.result()
+        print(f"{label} decode: {len(ok)} frames hash_ok {ok} ({secs:.1f} "
+              "s in the decode worker)", flush=True)
+        if len(ok) != n or not all(ok):
+            fail(f"{label}: the stream does not decode hash-exactly")
+        if shown != list(range(n)):
+            fail(f"{label}: decoded output order {shown} is not display "
+                 "order")
+        if not same:
             fail(f"{label}: decoded planes differ from the encoder's "
                  "reconstruction")
-    return launches, infos, maps
+    for pool in _POOL:
+        pool.shutdown()
+    print(f"decodes: waited {time.perf_counter() - t:.1f} s after the last "
+          "phase", flush=True)
 
 
 def output_order(pics, disp) -> list:
@@ -947,6 +1051,59 @@ def phase_gop(torch, me):
     return launches
 
 
+def phase_presets(torch, me):
+    """The preset ladder: --preset medium, 5 frames of mixed_frames at
+    1080p through encode_sequence on cuda (IDR, P 4, B 2 1 3), hash-exact,
+    with NxN cells in the IDR; per frame the cells by size code. Then
+    INTRA_LEAVES on one frame of leaf_frames at 416x240 and SMALL_PRESETS
+    at 416x240 (3 frames each), each on cuda and on the CPU: the same
+    streams and maps, with LEAF_SHARES of NxN and 64x64 cells in the
+    first. Returns the launches of the 1080p encode."""
+    from kvazaar_tpu_torch.cfg import PRESETS
+    launches, infos, maps = encode_timed(
+        torch, me, dict(PRESETS["medium"]), mixed_frames(5, W, H),
+        "preset medium")
+    for i, m in zip(infos, maps):
+        codes, cnt = np.unique(m["size_map8"], return_counts=True)
+        print(f"  POC {i['poc']}: 8x8 cells by size code "
+              f"{dict(zip(codes.tolist(), cnt.tolist()))}", flush=True)
+    idr = maps[0]["size_map8"]
+    if not (idr == 4).any():
+        fail("preset medium: the IDR coded no NxN cell")
+    t = time.perf_counter()
+    _, rows = compare_devices(leaf_frames(1, 416, 240), 416, 240,
+                              **INTRA_LEAVES)
+    for i, r in enumerate(rows):
+        cells = sum(r["sizes"].values())
+        print(f"intra leaves device parity 416x240 frame {i}: stream "
+              f"identical {r['same_stream']}, differing maps "
+              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}, 8x8 "
+              f"cells by size code {r['sizes']} of {cells}", flush=True)
+        for code, share in LEAF_SHARES.items():
+            if r["sizes"].get(code, 0) < share * cells:
+                fail(f"intra leaves: frame {i} codes fewer than {share:.0%}"
+                     f" of its cells with size code {code}")
+    print(f"intra leaves device parity: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
+        fail("intra leaves: cuda and CPU encodes differ")
+    for name in SMALL_PRESETS:
+        t = time.perf_counter()
+        _, rows = compare_devices(mixed_frames(3, 416, 240), 416, 240,
+                                  **PRESETS[name])
+        for i, r in enumerate(rows):
+            print(f"preset {name} device parity 416x240 frame {i}: stream "
+                  f"identical {r['same_stream']}, differing maps "
+                  f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
+                  flush=True)
+        print(f"preset {name} device parity: {time.perf_counter() - t:.1f} "
+              "s", flush=True)
+        if not all(r["same_stream"] and not r["differing_maps"]
+                   for r in rows):
+            fail(f"preset {name}: cuda and CPU encodes differ")
+    return launches
+
+
 def phase_device_parity():
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps."""
@@ -1022,6 +1179,8 @@ def main() -> None:
     runs.append(phase_lowdelay(torch, me))
     runs.append(phase_p(torch, me))
     runs.append(phase_gop(torch, me))
+    runs.append(phase_presets(torch, me))
+    check_decodes()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "
           f"of the encodes {launches}", flush=True)

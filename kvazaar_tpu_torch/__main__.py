@@ -1,10 +1,12 @@
 """Command-line encoder of the PyTorch/CUDA port, kvazaar flag names.
 
 Usage:  python -m kvazaar_tpu_torch -i in.yuv --input-res 1920x1080 \
-            -o out.hevc [--qp 22] [--frames N] [--device cuda]
+            -o out.hevc [--qp 22] [--preset medium] [--frames N] \
+            [--device cuda]
 
 Same options as python -m kvazaar_tpu; the ones outside the ported
-configuration raise NotImplementedError (see ROADMAP.md).
+configuration raise NotImplementedError (see ROADMAP.md). --preset is
+applied after the other flags, so its knobs override theirs.
 """
 from __future__ import annotations
 

@@ -105,12 +105,6 @@ def check_config(cfg: Config) -> None:
             (bool(cfg.vaq or cfg.roi_file), "delta QP (VAQ/ROI)", intra),
             (cfg.target_bitrate > 0, "rate control", intra),
             (cfg.wpp, "WPP", intra),
-            (tuple(cfg.pu_depth_intra) != (1, 3),
-             "--pu-depth-intra other than 1-3 (NxN, 64 leaves)", intra),
-            (tuple(cfg.pu_depth_inter) != (0, 3),
-             "--pu-depth-inter other than 0-3", intra),
-            (cfg.rd != 0, "--rd above 0", intra),
-            (cfg.subme != 4, "--subme other than 4", intra),
             (bool(cfg.fast_coeff_table), "--fast-coeff-table", intra),
             (cfg.crypto not in ("off", ""), "selective encryption", intra),
             (cfg.source_scan_type != "progressive", "field coding", intra),
@@ -149,11 +143,13 @@ class Encoder:
         kw = dict(deblock=cfg.deblock_enable, deblock_beta=cfg.deblock_beta,
                   deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
                   rdoq=cfg.rdoq_enable, sign_hiding=cfg.signhide_enable,
+                  pu_depth=tuple(cfg.pu_depth_intra), rd=cfg.rd,
                   device=self.device)
         if self.inter_enabled:
             from .models.inter_md import MdInterPipeline
             self._pipeline = MdInterPipeline(
                 self.sps.height, self.sps.width, cfg.qp, n_refs=self.n_refs,
+                pu_depth_inter=tuple(cfg.pu_depth_inter), subme=cfg.subme,
                 smp=cfg.smp_enable or cfg.amp_enable, amp=cfg.amp_enable,
                 bipred=cfg.bipred, **kw)
         else:

@@ -1,7 +1,7 @@
 """Quadtree (CTB 64) inter pipeline in PyTorch: P and generalized-B slices.
 
 Device port of the P and B programs of kvazaar_tpu/models/inter_md.py,
---subme 4, inter CU depths 0-3.
+with any inter CU depth range (--pu-depth-inter) and --subme 0-4.
 
 P slices (--no-bipred; submit_inter): one reference stack of n_refs
 pictures (--ref 1-4, padded by repeating the last); per size the
@@ -42,7 +42,7 @@ import torch
 from ..ops.mc import CHROMA_FILTERS
 from ..ops.me import (MV_CLAMP, REFINE, clamped_window, mc_luma_plain,
                       me_eval, me_refine, satd_tiles)
-from .intra_md import F32, I32, MdIntraPipeline, rep2, unsupported
+from .intra_md import F32, I32, MdIntraPipeline, rep2, sum4
 
 NO_REF_POC = -(1 << 30)
 
@@ -91,14 +91,6 @@ class MdInterPipeline(MdIntraPipeline):
                  n_refs: int = 1, pu_depth_inter: tuple[int, int] = (0, 3),
                  subme: int = 4, smp: bool = False, amp: bool = False,
                  bipred: bool = True, **kw) -> None:
-        for bad, what, entry in (
-                (tuple(pu_depth_inter) != (0, 3),
-                 "--pu-depth-inter other than 0-3",
-                 "the remaining intra variants"),
-                (subme != 4, "--subme other than 4",
-                 "the remaining intra variants")):
-            if bad:
-                raise unsupported(what, entry)
         super().__init__(height, width, qp, **kw)
         # P stack depth; B stacks: fixed per-list depth (both padded by
         # repeating the last picture)
@@ -110,7 +102,11 @@ class MdInterPipeline(MdIntraPipeline):
         # --smp/--amp: rectangular PUs in P slices (the B program has none)
         self.smp = bool(smp or amp)
         self.amp = bool(amp)
-        # inter CU sizes from --pu-depth-inter (0 = 64 .. 3 = 8)
+        # --subme: the SMP search's sub-pel steps (0 none, 1-2 half, 3-4
+        # half then quarter); me_refine's quarter-pel sweep ignores it
+        self.subme = max(0, min(int(subme), 4))
+        # inter CU sizes from --pu-depth-inter (0 = 64 .. 3 = 8); sizes
+        # outside the range leave the intra candidate
         lo, hi = pu_depth_inter
         self.allow_inter = {64: lo <= 0, 32: lo <= 1 <= hi,
                             16: lo <= 2 <= hi, 8: hi >= 3}
@@ -559,6 +555,7 @@ class MdInterPipeline(MdIntraPipeline):
         then the bottom-up split DP. Returns (size_map8, mode_map8,
         inter8, dir8, mv8, ref8, mv8b, ref8b, leaf_preds)."""
         lam = self.lam
+        big = 1e18
         me_l0, me_l1 = (
             self._me_sizes(src_y, lst[0],
                            [self._coarse_field(src_y, r) for r in lst[0]])
@@ -576,6 +573,8 @@ class MdInterPipeline(MdIntraPipeline):
              p_cr) = self._inter_leaf_b(src_y, src_cb, src_cr, l0, l1, n,
                                         me_l0[n], me_l1[n])
             leaf_preds[n] = (p_y, p_cb, p_cr)
+            if not self.allow_inter[n]:
+                ecost = ecost + big
             use_inter = ecost < icost
             per_size[n] = dict(modes=imodes, mv=mv0, ref=r0, mvb=mv1,
                                refb=r1, dir=dirn, inter=use_inter,
@@ -589,7 +588,7 @@ class MdInterPipeline(MdIntraPipeline):
             modes=torch.ones((n64,), dtype=I32, device=self.device),
             mv=mv64, ref=r64_, mvb=mv64b, refb=r64b, dir=dir64,
             inter=torch.ones((n64,), dtype=torch.bool, device=self.device),
-            cost=ecost64)
+            cost=ecost64 if self.allow_inter[64] else ecost64 + big)
         size_map8 = self._dp_merge(per_size)
         sel8 = self._sel8_fn(per_size, size_map8)
         return (size_map8, sel8("modes").to(I32), sel8("inter"),
@@ -796,7 +795,8 @@ class MdInterPipeline(MdIntraPipeline):
     def _refine_subpel(self, blocks, ref_y, y0, x0, mv_int):
         """Half- then quarter-pel SATD refinement of [L, nh, nw] blocks
         around mv_int (clamped to +-MV_CLAMP): each step tries the eight
-        neighbours of the current best in a fixed order, strict <.
+        neighbours of the current best in a fixed order, strict <; --subme
+        takes both steps (3-4), the half-pel one (1-2) or none (0).
         Returns (mv qpel [L, 2], satd [L])."""
         nh, nw = blocks.shape[-2:]
 
@@ -805,7 +805,9 @@ class MdInterPipeline(MdIntraPipeline):
                 ref_y, mv, y0, x0, nw, maxv=self.maxv, nh=nh))
         mv = mv_int.clamp(-MV_CLAMP, MV_CLAMP) * 4
         best = cost(mv)
-        for step in (2, 1):
+        steps = ((2, 1) if self.subme >= 3
+                 else (2,) if self.subme >= 1 else ())
+        for step in steps:
             for dx, dy in ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1),
                            (1, -1), (-1, 1), (1, 1)):
                 cand = mv + torch.tensor([dx * step, dy * step], dtype=I32,
@@ -1007,29 +1009,19 @@ class MdInterPipeline(MdIntraPipeline):
                 leaf_preds)
 
     def _dp_merge(self, per_size):
-        """Bottom-up split DP over per-size leaf costs -> size_map8."""
+        """Bottom-up split DP over per-size leaf costs -> size_map8. As in
+        the reference, the intra depth range forces or forbids the 8 / 16
+        / 32 splits of the inter quadtree too, and --pu-depth-inter
+        without depth 0 forbids 64 leaves."""
         lam = self.lam
-        r16, c16n = self.h // 16, self.w // 16
-        r32, c32n = self.h // 32, self.w // 32
-        r64, c64n = self.h // 64, self.w // 64
-
-        def sum4(c, rows, cols):
-            return c.reshape(rows, 2, cols, 2).sum(dim=(1, 3))
-
-        sp0 = self.dpc[self.DPC_SPLIT0]
-        sp1 = self.dpc[self.DPC_SPLIT1]
-        sum8 = sum4(per_size[8]["cost"].reshape(self.r8, self.c8), r16,
-                    c16n)
-        leaf16 = per_size[16]["cost"].reshape(r16, c16n)
-        split16 = sum8 + lam * sp1 < leaf16 + lam * sp0
-        best16 = torch.where(split16, sum8 + lam * sp1, leaf16 + lam * sp0)
-        sum16 = sum4(best16, r32, c32n)
-        leaf32 = per_size[32]["cost"].reshape(r32, c32n)
-        split32 = sum16 + lam * sp1 < leaf32 + lam * sp0
-        best32 = torch.where(split32, sum16 + lam * sp1, leaf32 + lam * sp0)
-        sum32 = sum4(best32, r64, c64n)
-        leaf64 = per_size[64]["cost"].reshape(r64, c64n)
-        split64 = sum32 + lam * sp1 < leaf64 + lam * sp0
+        split16, split32, best32 = self._split_dp(
+            *(per_size[n]["cost"].reshape(self.h // n, self.w // n)
+              for n in (8, 16, 32)))
+        leaf64 = per_size[64]["cost"].reshape(self.h // 64, self.w // 64)
+        split64 = sum4(best32) + lam * self.dpc[self.DPC_SPLIT1] \
+            < leaf64 + lam * self.dpc[self.DPC_SPLIT0]
+        if not self.allow_inter[64]:
+            split64 = torch.ones_like(split64)
         e64 = rep2(split64, 4)
         e32 = rep2(split32, 2)
         sz16 = torch.where(~e64, 64,

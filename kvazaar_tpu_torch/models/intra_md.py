@@ -1,22 +1,29 @@
-"""Quadtree (CTB 64) all-intra pipeline in PyTorch: CU/TU leaves 8/16/32.
+"""Quadtree (CTB 64) all-intra pipeline in PyTorch: CU leaves 64 down to
+NxN (four 4x4 PUs of an 8x8 CU).
 
 Device port of kvazaar_tpu/models/intra_md.py for 8-bit, constant-QP
-frames with intra PU depths 1-3 and rd 0, optionally with deblocking, SAO,
-RDOQ and sign-data hiding. One frame runs three stages on the pipeline's
-device:
+frames with any intra PU depth range (--pu-depth-intra 0-4) and the --rd
+ladder (0-3), optionally with deblocking, SAO, RDOQ and sign-data hiding.
+One frame runs three stages on the pipeline's device:
 
-1. search: every aligned block of every size evaluates all 35 intra modes
-   (one constant-matrix float32 product, exact because TF32 is off, plus
-   8x8 Hadamard SATD), then gets an RD leaf cost (exact integer T/Q/IT
-   distortion + the learned coefficient-rate model) for its best mode;
-2. partition DP: bottom-up quadtree merge 8 -> 16 -> 32 minimising
-   D + lambda * R;
+1. search: every aligned block of every allowed size evaluates all 35
+   intra modes (one constant-matrix float32 product, exact because TF32
+   is off, plus Hadamard SATD), then gets an RD leaf cost (exact integer
+   T/Q/IT distortion + the learned coefficient-rate model) for its best
+   mode; with --rd above 0, the rd + 1 best-SATD modes are RD-costed and
+   the cheapest kept. 64 leaves take one mode for four 32x32 TUs; NxN
+   cells four 4x4 modes with DST TUs and one 4x4 chroma TU;
+2. partition DP: bottom-up quadtree merge 8 -> 16 -> 32 -> 64 minimising
+   D + lambda * R, with the NxN-vs-2Nx2N choice at 8 and the depth range's
+   forced or forbidden splits;
 3. self-scheduled wavefront recon: each wave fires, per size class and
    class row, the leftmost TU whose reference samples (with z-order
-   availability and mode-dependent needs) are reconstructed. Prediction
-   reads the reconstructed planes directly; the fire step runs masked
-   over every class row, so the only host sync is the periodic
-   all-written exit test.
+   availability and mode-dependent needs) are reconstructed; a 64 leaf
+   fires as four 32 TUs, an NxN cell as an 8 leaf that waits for every
+   neighbour and codes its four 4x4 TUs in z order. Prediction reads the
+   reconstructed planes directly; the fire step runs masked over every
+   class row, so the only host sync is the periodic all-written exit
+   test.
 
 Then deblocking, SAO, the decoded-picture checksum and the SSE. Results
 are bit-exact to the reference's decisions (float32 costs aside, which the
@@ -37,7 +44,7 @@ import torch.nn.functional as F
 from ..ops.intra_matrices import (build_filter_matrix, build_pred_matrices,
                                   ref_vec_len)
 from ..ops.me import satd_tiles
-from ..tables import (DCT_MATRICES, INV_QUANT_SCALES, QUANT_SCALES,
+from ..tables import (DCT_MATRICES, DST4, INV_QUANT_SCALES, QUANT_SCALES,
                       SCAN_DIAG, SCAN_HOR, SCAN_VER, SIG_CTX_MAP_4X4,
                       chroma_qp, get_scan, scan_order, scanpos_map)
 
@@ -88,6 +95,11 @@ def consts_from_numpy(d: dict, device) -> dict:
 def rep2(x: torch.Tensor, k: int) -> torch.Tensor:
     """Repeat each element k times along dims 0 and 1."""
     return x.repeat_interleave(k, 0).repeat_interleave(k, 1)
+
+
+def sum4(c: torch.Tensor) -> torch.Tensor:
+    """Sum each 2x2 group of a [2R, 2C] map -> [R, C]."""
+    return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).sum(dim=(1, 3))
 
 
 def _seq_sum(x) -> torch.Tensor:
@@ -203,10 +215,6 @@ class MdIntraPipeline:
                  "the remaining intra variants"),
                 (lossless, "lossless", "the remaining intra variants"),
                 (bit_depth != 8, "10-bit", "the remaining intra variants"),
-                (tuple(pu_depth) != (1, 3),
-                 "--pu-depth-intra other than 1-3 (NxN, 64 leaves)",
-                 "the remaining intra variants"),
-                (rd != 0, "--rd above 0", "the remaining intra variants"),
                 (bool(fast_coeff_table), "--fast-coeff-table",
                  "the remaining intra variants"),
                 (trskip, "transform skip", "the remaining intra variants")):
@@ -224,6 +232,21 @@ class MdIntraPipeline:
         self.sao = None if sao == "off" else sao
         self.rdoq = rdoq
         self.sign_hiding = sign_hiding
+        # leaf sizes of the depth range (0 = 64, 1 = 32, 2 = 16, 3 = 8,
+        # 4 = NxN, kvazaar's --pu-depth-intra scale); at least one remains.
+        # A 64 leaf is one CU whose TU tree splits once into four 32 TUs;
+        # an NxN CU is an 8x8 CU of four 4x4 PUs and four 4x4 DST TUs
+        lo, hi = max(pu_depth[0], 0), min(pu_depth[1], 4)
+        if lo > hi:
+            lo = hi = min(max(pu_depth[0], 0), 4)
+        self.allow = {64: lo <= 0, 32: lo <= 1 <= hi, 16: lo <= 2 <= hi,
+                      8: hi >= 3, 4: hi >= 4}
+        # lo == 4: every 8x8 CU is NxN
+        self.force_nxn = lo >= 4
+        if not any(self.allow.values()):
+            self.allow[16] = True
+        # --rd: modes a leaf RD-costs among its best SATDs
+        self.rd_cands = max(1, min(int(rd), 3) + 1)
         self.r8, self.c8 = height // 8, width // 8
         self._mode_needs_cache: dict = {}
         self._const_cache: dict = {}
@@ -271,6 +294,11 @@ class MdIntraPipeline:
             "g4c": build_pred_matrices(4, chroma=True).astype(np.int8),
             "g8cc": build_pred_matrices(8, chroma=True).astype(np.int8),
             "g16c": build_pred_matrices(16, chroma=True).astype(np.int8),
+            # 4x4 luma (NxN PUs): no [1 2 1] smoothing at n = 4 (spec
+            # 8.4.4.2.3), the DST-VII transform (spec 8.6.4)
+            "g4l": build_pred_matrices(4).astype(np.int8),
+            "f4": build_filter_matrix(4).astype(np.int8),
+            "dst4": np.asarray(DST4, np.int32),
             "t4": np.asarray(DCT_MATRICES[4], np.int32),
             "t8": np.asarray(DCT_MATRICES[8], np.int32),
             "t16": np.asarray(DCT_MATRICES[16], np.int32),
@@ -331,12 +359,14 @@ class MdIntraPipeline:
         self.mode_cost = consts["mode_cost"]
         self.lam = consts["lam2"][0]
         self._tf64 = {n: consts[f"t{n}"].to(F64) for n in (4, 8, 16, 32)}
+        self._tf64["dst4"] = consts["dst4"].to(F64)
 
     def _gf(self, n: int, is_luma: bool):
         """(pred matrices, filter matrix) for a luma/chroma size."""
         c = self.c
         if is_luma:
-            return {8: (c["g8l"], c["f8"]), 16: (c["g16l"], c["f16l"]),
+            return {4: (c["g4l"], c["f4"]), 8: (c["g8l"], c["f8"]),
+                    16: (c["g16l"], c["f16l"]),
                     32: (c["g32l"], c["f32"])}[n]
         g = {4: c["g4c"], 8: c["g8cc"], 16: c["g16c"]}[n]
         return g, g
@@ -516,16 +546,17 @@ class MdIntraPipeline:
                            self.dpc[i0])
 
     def _transform_quant(self, resi, n: int, qp: int, *, is_luma: bool,
-                         tools: bool, scan_sel=None):
+                         tools: bool, scan_sel=None, dst: bool = False):
         """Forward transform + quant + dequant + inverse, exact integer
         arithmetic (the products run in float64, exact far beyond these
         magnitudes; CUDA has no int32 matmul). resi [L, n, n] ->
         (levels, recon_resi) int32. tools: quantise with the configured
         RDOQ / sign hiding (the reconstruction) instead of the plain
         deadzone rule (the search); scan_sel [L]: per-TU scan index that
-        sign hiding follows (mode-dependent scans), None for diagonal."""
+        sign hiding follows (mode-dependent scans), None for diagonal;
+        dst: the 4x4 DST-VII of intra luma instead of the DCT."""
         log2n = int(np.log2(n))
-        t = self._tf64[n]
+        t = self._tf64["dst4" if dst else n]
         shift1 = log2n - 1
         shift2 = log2n + 6
         tmp = (t @ resi.to(F64).transpose(1, 2)).to(I32)
@@ -789,14 +820,31 @@ class MdIntraPipeline:
         """Best mode + RD cost for every aligned n-block.
         Returns (modes [B] int32, cost [B] float32)."""
         g, f = self._gf(n, True)
-        gc, _ = self._gf(n // 2, False)
         lam = self.lam
         refs = self._src_refs(src_y, n)
         preds = self._preds_full(refs, g, f, n, True)
         blocks = self._blocks(src_y, n)
-        satd = satd_tiles(blocks[:, None]
-                                - preds.reshape(-1, 35, n, n))
-        modes = torch.argmin(satd, dim=1).to(I32)
+        satd = satd_tiles(blocks[:, None] - preds.reshape(-1, 35, n, n))
+        k = self.rd_cands
+        if k == 1:
+            modes = torch.argmin(satd, dim=1).to(I32)
+        else:
+            # the rd ladder: RD-cost the k best-SATD modes, keep the
+            # cheapest; a stable sort orders tied SATDs by mode, as the
+            # reference's top_k does
+            cand = torch.sort(satd, dim=1, stable=True).indices[:, :k]
+            B = blocks.shape[0]
+            predk = torch.gather(preds, 1, cand[:, :, None]
+                                 .expand(-1, -1, n * n)).reshape(B, k, n, n)
+            resik = (blocks[:, None] - predk).reshape(B * k, n, n)
+            lvk, rk2 = self._transform_quant(resik, n, self.qp_y,
+                                             is_luma=True, tools=False)
+            dk = self._sqsum(resik - rk2)
+            rtk = self._tu_rate_y(lvk, n) + self.mode_cost[cand.reshape(-1)]
+            # the final leaf cost's metric, noise factor included
+            ck = (dk * (1 + self.REF_NOISE_K / n) + lam * rtk).reshape(B, k)
+            sel = torch.argmin(ck, dim=1)                  # first minimum
+            modes = torch.gather(cand, 1, sel[:, None])[:, 0].to(I32)
         pred = torch.gather(preds, 1, modes.long()[:, None, None]
                             .expand(-1, 1, n * n))[:, 0].reshape(-1, n, n)
         resi = blocks - pred
@@ -804,48 +852,174 @@ class MdIntraPipeline:
                                            tools=False)
         dist = self._sqsum(resi - r2)
         rate = self._tu_rate_y(levels, n)
-        nc = n // 2
-        ccost = torch.zeros_like(dist)
-        for plane in (src_cb, src_cr):
-            crefs = self._src_refs(plane, nc)
-            cpred = self._pred_one(crefs, modes, gc, gc, nc, False)
-            cblocks = self._blocks(plane, nc)
-            cresi = cblocks - cpred.reshape(-1, nc, nc)
-            clev, cr2 = self._transform_quant(cresi, nc, self.qp_c,
-                                              is_luma=False, tools=False)
-            cdist = self._sqsum(cresi - cr2)
-            crate = self._tu_rate_c(clev, nc)
-            ccost = ccost + cdist * (1 + self.REF_NOISE_K / nc) \
-                + lam * crate
+        ccost = self._add_chroma_costs(torch.zeros_like(dist), src_cb,
+                                       src_cr, modes, n // 2)
         cost = dist * (1 + self.REF_NOISE_K / n) \
             + lam * (rate + self.mode_cost[modes.long()]
                      + self.dpc[self.DPC_CHROMA_DM]) + ccost
         return modes, cost
 
-    def _partition(self, src_y, src_cb, src_cr):
-        """Returns (size_map8 [R8,C8] in {8,16,32}, mode_map8 [R8,C8],
-        mode_map4 [R4,C4])."""
+    def _add_chroma_costs(self, acc, src_cb, src_cr, modes, nc: int,
+                          depth1: bool = False):
+        """acc plus, plane by plane (Cb, then Cr), the RD cost of each
+        block's nc x nc chroma TU predicted from source references with
+        the derived (DM) mode `modes`: its distortion with the noise
+        factor, plus lambda times its rate at trafo depth 0 or 1."""
+        gc, _ = self._gf(nc, False)
+        for plane in (src_cb, src_cr):
+            cpred = self._pred_one(self._src_refs(plane, nc), modes, gc, gc,
+                                   nc, False)
+            cresi = self._blocks(plane, nc) - cpred.reshape(-1, nc, nc)
+            clev, cr2 = self._transform_quant(cresi, nc, self.qp_c,
+                                              is_luma=False, tools=False)
+            acc = acc + self._sqsum(cresi - cr2) \
+                * (1 + self.REF_NOISE_K / nc) \
+                + self.lam * self._tu_rate_c(clev, nc, depth1=depth1)
+        return acc
+
+    def _leaf_rd64(self, src_y, src_cb, src_cr):
+        """64x64 leaf cost: one luma mode (the least summed SATD of its four
+        32x32 quarters) for four 32x32 TUs (the TU tree splits once, spec
+        7.3.8.8) and four 16x16 chroma TUs a plane, rates at trafo depth 1.
+        Returns (modes [B64] int32, cost [B64] float32)."""
         lam = self.lam
+        n = 32
+        r64, c64 = self.h // 64, self.w // 64
+
+        def to_children(v64):
+            return rep2(v64.reshape(r64, c64), 2).reshape(-1)
+
+        g, f = self._gf(n, True)
+        refs = self._src_refs(src_y, n)
+        preds = self._preds_full(refs, g, f, n, True)
+        blocks = self._blocks(src_y, n)
+        satd = satd_tiles(blocks[:, None] - preds.reshape(-1, 35, n, n))
+        satd4 = satd.reshape(r64, 2, c64, 2, 35).sum(dim=(1, 3))
+        m64 = torch.argmin(satd4.reshape(-1, 35), dim=1).to(I32)
+        mch = to_children(m64)
+        pred = torch.gather(preds, 1, mch.long()[:, None, None]
+                            .expand(-1, 1, n * n))[:, 0].reshape(-1, n, n)
+        resi = blocks - pred
+        levels, r2 = self._transform_quant(resi, n, self.qp_y, is_luma=True,
+                                           tools=False)
+        dist = self._sqsum(resi - r2)
+        rate = self._tu_rate_y(levels, n, depth1=True)
+        child = self._add_chroma_costs(
+            dist * (1 + self.REF_NOISE_K / n) + lam * rate, src_cb, src_cr,
+            mch, 16, depth1=True)
+        cost64 = child.reshape(r64, 2, c64, 2).sum(dim=(1, 3)).reshape(-1) \
+            + lam * (self.mode_cost[m64.long()]
+                     + self.dpc[self.DPC_CHROMA_DM])
+        return m64, cost64
+
+    @staticmethod
+    def _satd4(diff):
+        """SATD over trailing [.., 4, 4]: the 4x4 Hadamard transform, then
+        (sum |t| + 1) >> 1 (exact integers)."""
+        d = diff.to(I32)
+        t = torch.stack([d[..., 0, :] + d[..., 1, :] + d[..., 2, :]
+                         + d[..., 3, :],
+                         d[..., 0, :] - d[..., 1, :] + d[..., 2, :]
+                         - d[..., 3, :],
+                         d[..., 0, :] + d[..., 1, :] - d[..., 2, :]
+                         - d[..., 3, :],
+                         d[..., 0, :] - d[..., 1, :] - d[..., 2, :]
+                         + d[..., 3, :]], dim=-2)
+        t = torch.stack([t[..., 0] + t[..., 1] + t[..., 2] + t[..., 3],
+                         t[..., 0] - t[..., 1] + t[..., 2] - t[..., 3],
+                         t[..., 0] + t[..., 1] - t[..., 2] - t[..., 3],
+                         t[..., 0] - t[..., 1] - t[..., 2] + t[..., 3]],
+                        dim=-1)
+        return (t.abs().sum(dim=(-1, -2), dtype=I32) + 1) >> 1
+
+    def _leaf_rd4(self, src_y, src_cb, src_cr):
+        """NxN cost per 8x8 CU: four 4x4 luma PUs with their own SATD-best
+        modes and 4x4 DST TUs at trafo depth 1, plus one 4x4 chroma TU a
+        plane on PU0's mode. Returns (modes4 [B4] int32 per 4x4 block,
+        cost [B8] float32 per 8x8 cell)."""
+        lam = self.lam
+        r4n, c4n = self.h // 4, self.w // 4
+        g, f = self._gf(4, True)
+        refs = self._src_refs(src_y, 4)
+        preds = self._preds_full(refs, g, f, 4, True)
+        blocks = self._blocks(src_y, 4)
+        satd = self._satd4(blocks[:, None] - preds.reshape(-1, 35, 4, 4))
+        m4 = torch.argmin(satd, dim=1).to(I32)
+        pred = torch.gather(preds, 1, m4.long()[:, None, None]
+                            .expand(-1, 1, 16))[:, 0].reshape(-1, 4, 4)
+        resi = blocks - pred
+        levels, r2 = self._transform_quant(resi, 4, self.qp_y, is_luma=True,
+                                           tools=False, dst=True)
+        dist = self._sqsum(resi - r2)
+        rate = self._tu_rate_y(levels, 4, depth1=True)
+        child = (dist * (1 + self.REF_NOISE_K / 4)
+                 + lam * (rate + self.mode_cost[m4.long()])) \
+            .reshape(r4n // 2, 2, c4n // 2, 2).sum(dim=(1, 3)).reshape(-1)
+        m0 = m4.reshape(r4n, c4n)[::2, ::2].reshape(-1)
+        return m4, self._add_chroma_costs(
+            child + lam * self.dpc[self.DPC_CHROMA_DM], src_cb, src_cr, m0,
+            4)
+
+    def _split_dp(self, cost8, leaf16, leaf32):
+        """The 8 -> 16 -> 32 steps of the bottom-up split DP over the cost
+        of each 8x8 CU cost8 [R8,C8] and the leaf costs leaf16 and leaf32.
+        The intra depth range forces or forbids the splits (in the inter
+        quadtree too, as in the reference). Returns split16, split32 and
+        best32, the cost of each 32x32 region's choice."""
+        allow = self.allow
+        lam = self.lam
+        sp0 = self.dpc[self.DPC_SPLIT0]
+        sp1 = self.dpc[self.DPC_SPLIT1]
+        sum8 = sum4(cost8)
+        split16 = sum8 + lam * sp1 < leaf16 + lam * sp0
+        if not allow[8]:
+            split16 = torch.zeros_like(split16)
+        if not allow[16]:
+            split16 = torch.ones_like(split16)
+        best16 = torch.where(split16, sum8 + lam * sp1, leaf16 + lam * sp0)
+        sum16 = sum4(best16)
+        split32 = sum16 + lam * sp1 < leaf32 + lam * sp0
+        if not allow[32]:
+            split32 = torch.ones_like(split32)
+        elif not (allow[16] or allow[8]):
+            split32 = torch.zeros_like(split32)
+        best32 = torch.where(split32, sum16 + lam * sp1, leaf32 + lam * sp0)
+        return split16, split32, best32
+
+    def _partition(self, src_y, src_cb, src_cr):
+        """Returns (size_map8 [R8,C8] in {4, 8, 16, 32, 64}, 4 marking an
+        NxN 8x8 CU, mode_map8 [R8,C8] (PU0's mode for NxN), mode_map4
+        [R4,C4] with the per-4x4 PU modes)."""
+        lam = self.lam
+        allow = self.allow
         m8, c8c = self._leaf_rd(src_y, src_cb, src_cr, 8)
+        # the NxN-vs-2Nx2N choice at the 8x8 CU: part_mode is coded either
+        # way at the minimum CB size, its two values at different prices
         c8c = c8c + lam * self.dpc[self.DPC_PART_2NX2N]
+        nxn8 = m4 = None
+        if allow[4]:
+            m4, cnxn = self._leaf_rd4(src_y, src_cb, src_cr)
+            cn = (cnxn + lam * self.dpc[self.DPC_PART_NXN]) \
+                .reshape(self.r8, self.c8)
+            c2n = c8c.reshape(self.r8, self.c8)
+            nxn8 = torch.ones_like(cn, dtype=torch.bool) if self.force_nxn \
+                else cn < c2n
+            c8c = torch.where(nxn8, cn, c2n).reshape(-1)
         m16, c16c = self._leaf_rd(src_y, src_cb, src_cr, 16)
         m32, c32c = self._leaf_rd(src_y, src_cb, src_cr, 32)
         r16, c16n = self.h // 16, self.w // 16
         r32, c32n = self.h // 32, self.w // 32
-
-        def sum4(c, rows, cols):
-            return c.reshape(rows, 2, cols, 2).sum(dim=(1, 3))
-
-        sp0 = self.dpc[self.DPC_SPLIT0]
-        sp1 = self.dpc[self.DPC_SPLIT1]
-        c8m = c8c.reshape(self.r8, self.c8)
-        sum8 = sum4(c8m, r16, c16n)
-        leaf16 = c16c.reshape(r16, c16n)
-        split16 = sum8 + lam * sp1 < leaf16 + lam * sp0
-        best16 = torch.where(split16, sum8 + lam * sp1, leaf16 + lam * sp0)
-        sum16 = sum4(best16, r32, c32n)
-        leaf32 = c32c.reshape(r32, c32n)
-        split32 = sum16 + lam * sp1 < leaf32 + lam * sp0
+        split16, split32, best32 = self._split_dp(
+            c8c.reshape(self.r8, self.c8), c16c.reshape(r16, c16n),
+            c32c.reshape(r32, c32n))
+        split64 = None
+        if allow[64]:
+            m64, c64c = self._leaf_rd64(src_y, src_cb, src_cr)
+            r64, c64n = self.h // 64, self.w // 64
+            split64 = sum4(best32) + lam * self.dpc[self.DPC_SPLIT1] \
+                < c64c.reshape(r64, c64n) + lam * self.dpc[self.DPC_SPLIT0]
+            if not (allow[32] or allow[16] or allow[8]):
+                split64 = torch.zeros_like(split64)
         e32 = rep2(split32, 2)
         sz16 = torch.where(~e32, 32, torch.where(split16, 8, 16))
         size_map8 = rep2(sz16, 2).to(I32)
@@ -854,7 +1028,19 @@ class MdIntraPipeline:
         mode_map8 = torch.where(
             size_map8 == 8, m8.reshape(self.r8, self.c8),
             torch.where(size_map8 == 16, mode16_8, mode32_8)).to(I32)
-        mode_map4 = rep2(mode_map8, 2)
+        if split64 is not None:
+            is64 = ~rep2(split64, 8)
+            size_map8 = torch.where(is64, 64, size_map8).to(I32)
+            mode_map8 = torch.where(is64, rep2(m64.reshape(r64, c64n), 8),
+                                    mode_map8).to(I32)
+        if nxn8 is None:
+            return size_map8, mode_map8, rep2(mode_map8, 2)
+        m4m = m4.reshape(self.h // 4, self.w // 4)
+        isn = (size_map8 == 8) & nxn8
+        size_map8 = torch.where(isn, 4, size_map8).to(I32)
+        mode_map8 = torch.where(isn, m4m[::2, ::2], mode_map8).to(I32)
+        mode_map4 = torch.where(rep2(isn, 2), m4m,
+                                rep2(mode_map8, 2)).to(I32)
         return size_map8, mode_map8, mode_map4
 
     # ------------------------------------------------------------------
@@ -1000,13 +1186,14 @@ class MdIntraPipeline:
             .reshape(-1, n, n)
         resi = srcb - pred
         scan_sel = None
-        if n == (8 if is_luma else 4):
+        if n == 4 or (is_luma and n == 8):
             # mode-dependent coefficient scan (spec 7.4.9.11)
             scan_sel = torch.where((modes >= 6) & (modes <= 14), SCAN_VER,
                                    torch.where((modes >= 22) & (modes <= 30),
                                                SCAN_HOR, SCAN_DIAG))
         levels, r2 = self._transform_quant(resi, n, qp, is_luma=is_luma,
-                                           tools=True, scan_sel=scan_sel)
+                                           tools=True, scan_sel=scan_sel,
+                                           dst=is_luma and n == 4)
         cbf = (levels != 0).any(dim=-1).any(dim=-1)[:, None, None]
         rec = (pred + torch.where(cbf, r2, 0)).clamp(0, self.maxv)
         return rec, torch.where(cbf, levels, 0)
@@ -1036,8 +1223,17 @@ class MdIntraPipeline:
         rb, lb = self._tu_apply(luma[0], pre["by"][bidx], s, 8, y0, x0,
                                 has_left, has_top, nbl, ntr, modes,
                                 self.qp_y, True)
-        self._put(luma[0], y0, x0, s, rb, valid)
-        self._put(luma[1], y0, x0, s, lb, valid)
+        nxn = None
+        if "nxn" in pre:
+            nxn = valid & pre["nxn"][r, c]
+            valid_2n = valid & ~nxn
+        else:
+            valid_2n = valid
+        self._put(luma[0], y0, x0, s, rb, valid_2n)
+        self._put(luma[1], y0, x0, s, lb, valid_2n)
+        if nxn is not None:
+            self._nxn_apply(luma, pre["by"][bidx], y0, x0, has_left,
+                            has_top, nbl, ntr, pre["modes4"][r, c], nxn)
         sc = s // 2
         for i, key in enumerate(("bcb", "bcr")):
             rb, lb = self._tu_apply(chroma[i], pre[key][bidx], sc, 4,
@@ -1045,6 +1241,32 @@ class MdIntraPipeline:
                                     ntr, modes, self.qp_c, False)
             self._put(chroma[i], r * sc, c * sc, sc, rb, valid)
             self._put(chroma[2 + i], r * sc, c * sc, sc, lb, valid)
+
+    def _nxn_apply(self, luma, src8, y0, x0, has_left, has_top, nbl, ntr,
+                   modes4, nxn) -> None:
+        """Reconstruct the four 4x4 luma TUs of the NxN cells nxn [L] of
+        the fired 8-class slots into the planes, one after another in z
+        order: each predicts from the plane, its neighbours in the cell
+        being the TUs just written, with its own availability (spec
+        8.4.4.2.2): sub-TU 1 has no below-left and the cell's first
+        top-right cell, sub-TU 2 the cell's first below-left cell and
+        sub-TU 1 as top-right, sub-TU 3 neither. modes4 [L, 4] in z
+        order."""
+        one = torch.ones_like(has_left)
+        zero = torch.zeros_like(nbl)
+        nb1, nt1 = nbl.clamp(max=1), ntr.clamp(max=1)
+        avail = ((has_left, has_top, has_left.to(nbl.dtype),
+                  has_top.to(nbl.dtype)),
+                 (one, has_top, zero, nt1),
+                 (has_left, one, nb1, zero + 1),
+                 (one, one, zero, zero))
+        for i, (dy, dx) in enumerate(((0, 0), (0, 4), (4, 0), (4, 4))):
+            hl, ht, nb, nt = avail[i]
+            rb, lb = self._tu_apply(luma[0], src8[:, dy:dy + 4, dx:dx + 4],
+                                    4, 4, y0 + dy, x0 + dx, hl, ht, nb, nt,
+                                    modes4[:, i], self.qp_y, True)
+            self._put(luma[0], y0 + dy, x0 + dx, 4, rb, nxn)
+            self._put(luma[1], y0 + dy, x0 + dx, 4, lb, nxn)
 
     def _new_planes(self):
         h, w = self.h, self.w
@@ -1057,12 +1279,19 @@ class MdIntraPipeline:
         return luma, chroma, written
 
     def _recon_md(self, src_y, src_cb, src_cr, size_map8, mode_map8,
-                  init_state=None, exclude8=None):
+                  init_state=None, exclude8=None, mode_map4=None):
         """Self-scheduled recon. init_state: optional pre-written
         (luma [2, Hp, Wp], chroma [4, Hc, Wc], written8) planes in the
         +1-offset layout (the inter path reconstructs its leaves first);
-        exclude8: cells whose leaves the wavefront must not fire.
+        exclude8: cells whose leaves the wavefront must not fire;
+        mode_map4: the per-4x4 PU modes of the NxN cells (size code 4).
+        A 64 leaf reconstructs as four 32 TUs of one mode, so it fires as
+        four 32 leaves; an NxN cell fires as an 8 leaf that waits for
+        every neighbour region its four modes might read.
         Returns (luma, chroma, written, n_waves)."""
+        nxn8 = None
+        if mode_map4 is not None and self.allow[4]:
+            nxn8 = size_map8 == 4
         size_map8 = size_map8.clamp(8, 32)
         if init_state is None:
             luma, chroma, written = self._new_planes()
@@ -1076,12 +1305,20 @@ class MdIntraPipeline:
             st = self._class_static(size_map8, leafz, s, mode_map8)
             if exclude8 is not None:
                 st["leaf"] = st["leaf"] & ~exclude8[::k, ::k]
-            statics[s] = st
             pres[s] = {"by": self._blocks(src_y, s),
                        "bcb": self._blocks(src_cb, s // 2),
                        "bcr": self._blocks(src_cr, s // 2),
                        "modes": mode_map8[::k, ::k],
                        "cols": self._arange(cs)}
+            if s == 8 and nxn8 is not None:
+                for key in ("need_l", "need_t", "need_bl", "need_tr"):
+                    st[key] = st[key] | nxn8
+                m4 = mode_map4
+                pres[s]["nxn"] = nxn8
+                pres[s]["modes4"] = torch.stack(
+                    [m4[0::2, 0::2], m4[0::2, 1::2], m4[1::2, 0::2],
+                     m4[1::2, 1::2]], dim=-1)
+            statics[s] = st
         cap = 3 * self.r8 + 2 * self.c8 + 64
         n_waves = torch.zeros((), dtype=torch.int64, device=self.device)
         wave = 0
@@ -1119,7 +1356,9 @@ class MdIntraPipeline:
     # ------------------------------------------------------------------
 
     def _edge_maps(self, size_map8):
-        """Deblocking BS=2 maps on the TU grid from the partition."""
+        """Deblocking BS=2 maps on the TU grid from the partition. A 64
+        CU's 32-TU edges are TU edges (code 64 acts as 32); an NxN cell's
+        4x4 TU edges are off the 8-sample grid (code 4 acts as 8)."""
         k = size_map8.clamp(8, 32) >> 3
         c = self._arange(self.c8)[None, :]
         r = self._arange(self.r8)[:, None]
@@ -1198,7 +1437,8 @@ class MdIntraPipeline:
         size_map8, mode_map8, mode_map4 = self._partition(src_y, src_cb,
                                                           src_cr)
         luma, chroma, _, n_waves = self._recon_md(
-            src_y, src_cb, src_cr, size_map8, mode_map8)
+            src_y, src_cb, src_cr, size_map8, mode_map8,
+            mode_map4=mode_map4)
         ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(luma,
                                                                   chroma)
         if self.deblock:

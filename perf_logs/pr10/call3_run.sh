@@ -1,0 +1,19 @@
+#!/bin/bash
+# one chip call: the smoke and the CUDA tests from the unpacked tree, then
+# the smoke alone in an empty directory
+cd /root/repo
+mkdir -p chiprun_out/pr10
+python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+t0=$(date +%s)
+(cd _chipwork/tree && python3 chip_smoke.py) > chiprun_out/pr10/call3_chip_smoke.log 2>&1
+echo smoke_rc=$? wall_s=$(( $(date +%s) - t0 ))
+(cd _chipwork/tree && python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py) > chiprun_out/pr10/call3_cuda_tests.log 2>&1
+echo tests_rc=$?
+mkdir -p /tmp/alone && cp _chipwork/tree/chip_smoke.py /tmp/alone/
+(cd /tmp/alone && python3 chip_smoke.py) > chiprun_out/pr10/call3_alone.log 2>&1
+echo alone_rc=$?
+tail -3 chiprun_out/pr10/call3_alone.log
+tail -2 chiprun_out/pr10/call3_cuda_tests.log
+grep -E "^smoke:|decode|intra leaves|preset .* parity:|FAIL" chiprun_out/pr10/call3_chip_smoke.log
+tail -3 chiprun_out/pr10/call3_chip_smoke.log

@@ -30,6 +30,8 @@ def test_consts_match_jax(jcls, pcls, kw, qp):
     jp, pp = _pair(jcls, pcls, kw, qp)
     conv = consts_from_numpy(jp.consts, "cpu")
     assert set(pp.consts) <= set(conv)
+    # the 4x4 luma matrices of NxN PUs are among them
+    assert {"g4l", "f4", "dst4"} <= set(pp.consts)
     for k, v in pp.consts.items():
         assert conv[k].dtype == v.dtype, k
         assert torch.equal(conv[k], v), k

@@ -10,10 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (GOP8, LOWDELAY, OPEN_GOP, P_SMP,  # noqa: E402
-                        TOOL_LDB, TOOL_ROW, compare_devices,
-                        kernel_errors, kernel_inputs, mixed_frames,
-                        split_motion_frames, tie_inputs, tie_planes)
+from chip_smoke import (GOP8, INTRA_LEAVES, LOWDELAY, OPEN_GOP,  # noqa
+                        P_SMP, TOOL_LDB, TOOL_ROW, compare_devices,
+                        kernel_errors, kernel_inputs, leaf_frames,
+                        mixed_frames, split_motion_frames, tie_inputs,
+                        tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -166,3 +167,47 @@ def test_cuda_gop_equals_cpu(opts):
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 12 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["ultrafast", "medium"])
+def test_cuda_presets_equal_cpu(preset):
+    """--preset ultrafast (intra depths 2-3, inter 1-2, --subme 0, one
+    reference) and medium (NxN, GOP 16, --ref 4, SAO and RDOQ) give the
+    CPU path's stream and maps on the GPU over 5 frames fed in display
+    order (IDR, P 4, B 2 1 3), with 8 me_refine launches a picture of a B
+    frame's stacks, 4 a picture of the P anchor's, 12 me_eval launches a
+    B frame and 8 one-list launches in the P anchor."""
+    _need_cuda()
+    from kvazaar_tpu_torch.cfg import PRESETS
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    before = (me.me_refine.launches, me.me_eval.launches,
+              me.me_eval.one_list_launches)
+    cfg = PRESETS[preset]
+    stream, rows = compare_devices(mixed_frames(5, W, H), W, H, **cfg)
+    refs = cfg["ref_frames"]
+    assert (me.me_refine.launches - before[0],
+            me.me_eval.launches - before[1],
+            me.me_eval.one_list_launches - before[2]) == (
+                3 * 8 * min(2, refs) + 4 * refs, 3 * 12 + 8, 8)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 5 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+def test_cuda_intra_leaves_equal_cpu():
+    """Every intra depth (64x64 leaves to NxN 4x4, --pu-depth-intra 0-4)
+    with --rd 3, SAO full, RDOQ and sign hiding at QP 27 on half
+    detailed, half flat content (the CPU tests' golden "rd3") gives the
+    CPU path's stream and maps on the GPU over 2 frames, with NxN cells
+    and 64x64 leaves in each, and decodes hash-exactly."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    stream, rows = compare_devices(leaf_frames(2, W, H), W, H,
+                                   **INTRA_LEAVES)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    assert all(r["sizes"].get(4, 0) and r["sizes"].get(64, 0)
+               for r in rows), [r["sizes"] for r in rows]
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 2 and all(p.hash_ok for p in pics)

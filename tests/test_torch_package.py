@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from kvazaar_tpu_torch.cfg import PRESETS  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "kvazaar_tpu_torch")
 SOURCES = sorted(
@@ -83,8 +85,7 @@ UNSUPPORTED = {
     "lossless": dict(lossless=True), "wpp": dict(wpp=True),
     "scaling": dict(scaling_list="default"), "vaq": dict(vaq=2),
     "bitrate": dict(target_bitrate=100000), "tiles": dict(tiles=(2, 1)),
-    "ctu16": dict(ctu_size=16), "nxn": dict(pu_depth_intra=(1, 4)),
-    "rd2": dict(rd=2), "subme2": dict(subme=2),
+    "ctu16": dict(ctu_size=16),
 }
 
 
@@ -106,14 +107,19 @@ TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
          "smp": dict(smp_enable=True), "amp": dict(amp_enable=True),
          "lp_no_bipred": dict(gop_len=4, gop_lowdelay=True, bipred=False),
          "gop8": dict(gop_len=8), "gop4_pyramid": dict(gop_len=4),
-         "open_gop": dict(gop_len=8, open_gop=True)}
+         "open_gop": dict(gop_len=8, open_gop=True),
+         "nxn": dict(pu_depth_intra=(1, 4)),
+         "intra64": dict(pu_depth_intra=(0, 3)), "rd2": dict(rd=2),
+         "subme2": dict(subme=2), "pu_depth_inter_1_2":
+         dict(pu_depth_inter=(1, 2))}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_options_encode_and_decode(name):
     """Each option of the tool row, two references a list, the low-delay
-    GOP, the P program (--no-bipred), SMP/AMP and the B pyramid (closed
-    and open GOP) build on cuda unless the CPU is asked for, and encode
+    GOP, the P program (--no-bipred), SMP/AMP, the B pyramid (closed
+    and open GOP), NxN and 64 intra leaves, the rd ladder, --subme and an
+    inter depth range build on cuda unless the CPU is asked for, and encode
     IDR + B (P with --no-bipred, and in a pyramid, whose one-frame tail
     is a P anchor; --smp/--amp change only the SPS under bi-prediction)
     at 128x64 on the CPU (both pipelines), hash-exact in the port's
@@ -141,6 +147,30 @@ def test_tool_options_encode_and_decode(name):
         2, 0 if cfg.bipred and not pyramid else 1]
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_presets_encode_and_decode(preset):
+    """Each of the ten --preset rows encodes 3 frames of moving content at
+    64x64 on the CPU through encode_sequence (an IDR, then the GOP's
+    span), hash-exact in the port's decoder."""
+    from kvazaar_tpu_torch.api import encode_sequence
+    from kvazaar_tpu_torch.cfg import Config, apply_preset
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    cfg = apply_preset(Config(width=64, height=64), preset)
+    rng = np.random.RandomState(4)
+    base = [rng.randint(0, 256, s).astype(np.uint8)
+            for s in ((64, 64), (32, 32), (32, 32))]
+    frames = [tuple(np.roll(p, i, axis=1) for p in base) for i in range(3)]
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        stream, infos = encode_sequence(cfg, frames, device="cpu")
+    finally:
+        torch.set_num_threads(n_threads)
+    assert len(infos) == 3 and infos[0]["slice_type"] == 2
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 3 and all(p.hash_ok for p in pics)
 
 
 @pytest.mark.parametrize("opts", [{}, dict(smp_enable=True),

@@ -45,10 +45,23 @@ through push_frame/flush:
   display index, POC, slice and NAL type, QP, l0, l1, the retention set
   and the retained DPB), through stand-in pipelines (no device work);
 - the B inter leaf at n = 16 and 64 with distinct two-picture stacks a
-  list, bi-prediction on and off (`gleaf<b><n>_*`), on gop_leaf_inputs.
+  list, bi-prediction on and off (`gleaf<b><n>_*`), on gop_leaf_inputs;
+
+and in tests/data/torch_golden_presets.npz, the preset ladder:
+
+- per PRESET_CONFIGS entry the stream and every coded frame's maps
+  (`mode_map4` included): all-intra NxN and 64x64 leaves and the --rd
+  ladder on intra_frames at 128x64, and --preset ultrafast, medium and
+  placebo on gop_frames through encode_sequence;
+- the intra stages on intra_frames("halfflat") (`satd4_*`, `leaf4_*`,
+  `leaf64_*`, `leafrd<rd>_<n>_*`, `part<lo><hi>_*`, `nxnrec_*`), the
+  inter split DP under the depth gates of DP_GATES (`dp_<name>`) and
+  the SMP search's sub-pel refinement at --subme 0, 2 and 4
+  (`subpel<s>_*`).
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p|gop] (every file when no argument is given).
+[slice|tools|lowdelay|p|gop|presets] (every file when no argument is
+given).
 """
 from __future__ import annotations
 
@@ -67,6 +80,8 @@ OUT_LOWDELAY = os.path.join(ROOT, "tests", "data",
                             "torch_golden_lowdelay.npz")
 OUT_P = os.path.join(ROOT, "tests", "data", "torch_golden_p.npz")
 OUT_GOP = os.path.join(ROOT, "tests", "data", "torch_golden_gop.npz")
+OUT_PRESETS = os.path.join(ROOT, "tests", "data",
+                           "torch_golden_presets.npz")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
@@ -168,9 +183,9 @@ def stage_inputs() -> dict:
     return {"src": frames[1], "ref": frames[0]}
 
 
-def jax_stream(frames, **cfg) -> tuple[bytes, list[dict]]:
+def jax_stream(frames, keys=MAP_KEYS, **cfg) -> tuple[bytes, list[dict]]:
     """Encode frames with kvazaar_tpu (Config options cfg); returns
-    (stream, decisions)."""
+    (stream, decisions: the maps of `keys`)."""
     from kvazaar_tpu.api import Encoder
     from kvazaar_tpu.cfg import Config
     enc = Encoder(Config(width=frames[0][0].shape[1],
@@ -180,7 +195,7 @@ def jax_stream(frames, **cfg) -> tuple[bytes, list[dict]]:
         chunk, _ = enc.encode_frame(*f)
         out += chunk
         decs.append({k: np.asarray(v) for k, v in
-                     enc._last_decisions.items() if k in MAP_KEYS})
+                     enc._last_decisions.items() if k in keys})
     return out, decs
 
 
@@ -315,10 +330,12 @@ def jax_gop_plan(name: str) -> list[dict]:
                       gop_frames(n))
 
 
-def jax_gop_stream(frames, **cfg) -> tuple[bytes, list[dict], list[dict]]:
+def jax_gop_stream(frames, keys=MAP_KEYS,
+                   **cfg) -> tuple[bytes, list[dict], list[dict]]:
     """Encode display-order frames with kvazaar_tpu through
-    encode_sequence (push_frame/flush); returns (stream, decisions,
-    plan), the last two per coded frame in coding order."""
+    encode_sequence (push_frame/flush); returns (stream, decisions: the
+    maps of `keys`, plan), the last two per coded frame in coding
+    order."""
     from kvazaar_tpu.api import Encoder, encode_sequence
     from kvazaar_tpu.cfg import Config
     enc = Encoder(Config(width=frames[0][0].shape[1],
@@ -330,7 +347,7 @@ def jax_gop_stream(frames, **cfg) -> tuple[bytes, list[dict], list[dict]]:
         out = finalize(meta)
         plan.append(gop_plan_entry(meta))
         decs.append({k: np.asarray(v) for k, v in
-                     enc._last_decisions.items() if k in MAP_KEYS})
+                     enc._last_decisions.items() if k in keys})
         return out
     enc.finalize_frame = record
     stream, _ = encode_sequence(enc.cfg, frames, encoder=enc)
@@ -608,9 +625,236 @@ def write_gop_golden(path: str = OUT_GOP, workers: int = 2) -> None:
     _save(path, data)
 
 
+# the preset ladder. PRESET_KEYS: the maps of every coded frame, with the
+# per-4x4 PU modes of NxN cells. PRESET_CONFIGS: (configuration, content,
+# frames); "nxn" is tests/test_intra_nxn.py's NxN run on its detail
+# content, "rd3" the deepest intra range with the --rd ladder and every
+# tool on half flat, half detailed content (64 leaves, NxN with the
+# mode-dependent sign-hiding scan, ties in the ladder), "d44" / "d00"
+# forced NxN and 64-only, and ultrafast, medium (bench.py's comparison
+# point) and placebo the presets themselves (kvazaar_tpu.cfg.PRESETS,
+# applied over the defaults as the CLI applies --preset).
+PRESET_KEYS = MAP_KEYS + ("mode_map4",)
+PRESET_CONFIGS = {
+    "nxn": (dict(qp=22, intra_period=1, pu_depth_intra=(1, 4)), "detail",
+            2),
+    "rd3": (dict(qp=27, intra_period=1, pu_depth_intra=(0, 4), rd=3,
+                 sao_type="full", rdoq_enable=True, signhide_enable=True),
+            "halfflat", 2),
+    "d44": (dict(qp=27, intra_period=1, pu_depth_intra=(4, 4)),
+            "halfflat", 1),
+    "d00": (dict(qp=27, intra_period=1, pu_depth_intra=(0, 0)),
+            "halfflat", 1),
+    "ultrafast": ("ultrafast", "gop", 5),
+    "medium": ("medium", "gop", 5),
+    "placebo": ("placebo", "gop", 5),
+}
+# the depth gates of the inter split DP: (pu_depth_intra, pu_depth_inter)
+DP_GATES = {"ultrafast": ((2, 3), (1, 2)), "veryfast": ((2, 3), (1, 3)),
+            "medium": ((1, 4), (0, 3)), "d44": ((4, 4), (0, 3)),
+            "d00": ((0, 0), (0, 3))}
+# intra depth ranges of the partition stage, and QP of the intra stages
+PART_RANGES = ((0, 4), (1, 4), (2, 3), (4, 4))
+STAGE_QP = 27
+
+
+def intra_frames(kind: str, n: int, w: int = W, h: int = H) -> list:
+    """All-intra content. "detail": tests/test_intra_nxn.py's mosaic of
+    4x4 directional gradients (its generator and seed), where one 8x8
+    mode cannot fit the four quadrants, so NxN wins on many cells;
+    "halfflat": that mosaic in the left half and, in the right half, a
+    flat top (every intra mode predicts it exactly: SATD ties) over a
+    shallow ramp, with flat chroma beside a chroma ramp."""
+    rng = np.random.RandomState(1234)
+    out = []
+    for i in range(n):
+        y = np.zeros((h, w), np.int32)
+        for by in range(0, h, 4):
+            for bx in range(0, w, 4):
+                k = rng.randint(4)
+                g = np.add.outer(np.arange(4) * [13, -13, 0, 29][k],
+                                 np.arange(4) * [0, 23, -23, -17][k])
+                y[by:by + 4, bx:bx + 4] = rng.randint(0, 200) + g
+        cb = np.full((h // 2, w // 2), 128, np.int32)
+        cr = np.full((h // 2, w // 2), 128, np.int32)
+        if kind == "halfflat":
+            xs = np.arange(w - w // 2)
+            y[:h // 2, w // 2:] = 117 + i
+            y[h // 2:, w // 2:] = 90 + (xs // 3)[None, :] + 2 * i
+            cr[:, w // 4:] = 100 + np.arange(w // 4)[None, :] // 2
+        out.append((y.clip(0, 255).astype(np.uint8), cb.astype(np.uint8),
+                    cr.astype(np.uint8)))
+    return out
+
+
+def preset_config(name: str) -> dict:
+    """Config options of a PRESET_CONFIGS entry."""
+    cfg = PRESET_CONFIGS[name][0]
+    if isinstance(cfg, str):
+        from kvazaar_tpu.cfg import PRESETS
+        return dict(PRESETS[cfg])
+    return dict(cfg)
+
+
+def preset_frames(name: str) -> list:
+    _, kind, n = PRESET_CONFIGS[name]
+    return gop_frames(n) if kind == "gop" else intra_frames(kind, n)
+
+
+def subpel_inputs() -> dict:
+    """Inputs of the sub-pel refinement goldens at 128x64: slice frame 0
+    as the reference, frame 1's 16x16 blocks (and the top 16x8 halves)
+    as the sources, integer MVs in -4..4 from a fixed seed."""
+    f = slice_frames(2)
+    ref, src = f[0][0].astype(np.int32), f[1][0].astype(np.int32)
+    rows, cols = H // 16, W // 16
+    blocks = src.reshape(rows, 16, cols, 16).transpose(0, 2, 1, 3) \
+        .reshape(-1, 16, 16)
+    bid = np.arange(rows * cols)
+    rng = np.random.RandomState(31)
+    return {"ref": ref, "blocks": blocks,
+            "y0": ((bid // cols) * 16).astype(np.int32),
+            "x0": ((bid % cols) * 16).astype(np.int32),
+            "mv": rng.randint(-4, 5, (rows * cols, 2)).astype(np.int32)}
+
+
+def dp_inputs() -> dict:
+    """Leaf costs of the split-DP goldens: per size n (8..64) a cost per
+    aligned block, uniform noise times n^2 times a factor that makes
+    larger leaves cheaper, so an ungated DP picks the 64 and 32 leaves
+    the gates forbid."""
+    rng = np.random.RandomState(32)
+    f = {8: 1.0, 16: 0.9, 32: 0.75, 64: 0.6}
+    return {n: (rng.uniform(0.6, 1.0, (H // n) * (W // n)) * n * n * f[n]
+                ).astype(np.float32) for n in (8, 16, 32, 64)}
+
+
+def jax_preset_stages() -> dict:
+    """The JAX intra stages on intra_frames("halfflat") at QP STAGE_QP:
+    _satd4 on random differences, _leaf_rd4, _leaf_rd64, _leaf_rd at rd
+    1, 2 and 3 (n = 8, 16, 32), _partition at PART_RANGES, partition and
+    NxN reconstruction with RDOQ and sign hiding at depths 1-4; the inter
+    split DP on dp_inputs under DP_GATES; _refine_subpel on
+    subpel_inputs at --subme 0, 2 and 4."""
+    import jax
+    import jax.numpy as jnp
+    from kvazaar_tpu.models.inter_md import MdInterPipeline
+    from kvazaar_tpu.models.intra_md import MdIntraPipeline
+    src = tuple(jnp.asarray(p, jnp.int32)
+                for p in intra_frames("halfflat", 1)[0])
+    out = {}
+    rng = np.random.RandomState(30)
+    diff = rng.randint(-255, 256, (96, 4, 4)).astype(np.int32)
+    pipe = MdIntraPipeline(H, W, STAGE_QP, pu_depth=(0, 4))
+    out["satd4_in"] = diff
+    out["satd4_out"] = jax.jit(pipe._satd4)(jnp.asarray(diff))
+
+    def run(p, fn, *args):
+        return jax.jit(p._with_consts(fn))(p.consts, *args)
+
+    def leaf4(y, cb, cr):
+        return pipe._leaf_rd4(y, cb, cr, pipe.lam2[0])
+
+    def leaf64(y, cb, cr):
+        return pipe._leaf_rd64(y, cb, cr, pipe.lam2[0])
+    out["leaf4_modes"], out["leaf4_cost"] = run(pipe, leaf4, *src)
+    out["leaf64_modes"], out["leaf64_cost"] = run(pipe, leaf64, *src)
+    for rd in (1, 2, 3):
+        p = MdIntraPipeline(H, W, STAGE_QP, rd=rd)
+        for n in (8, 16, 32):
+            def leaf(y, cb, cr, p=p, n=n):
+                g, f, gc, t, tc = {
+                    8: (p.g8l, p.f8, p.g4c, p.t8, p.t4),
+                    16: (p.g16l, p.f16l, p.g8cc, p.t16, p.t8),
+                    32: (p.g32l, p.f32, p.g16c, p.t32, p.t16)}[n]
+                return p._leaf_rd(y, cb, cr, n, g, f, gc, t, tc,
+                                  p.lam2[0])
+            m, c = run(p, leaf, *src)
+            out[f"leafrd{rd}_{n}_modes"], out[f"leafrd{rd}_{n}_cost"] = m, c
+    for lo, hi in PART_RANGES:
+        p = MdIntraPipeline(H, W, STAGE_QP, pu_depth=(lo, hi))
+
+        def part(y, cb, cr, p=p):
+            return p._partition(y, cb, cr, p.lam2[0])
+        for k, v in zip(("size_map8", "mode_map8", "mode_map4"),
+                        run(p, part, *src)):
+            out[f"part{lo}{hi}_{k}"] = v
+    p = MdIntraPipeline(H, W, STAGE_QP, pu_depth=(1, 4), rdoq=True,
+                        sign_hiding=True)
+
+    def nxn(y, cb, cr):
+        sm, mm, m4 = p._partition(y, cb, cr, p.lam2[0])
+        luma, chroma, _, _ = p._recon_md(y, cb, cr, sm, mm, mode_map4=m4)
+        return sm, mm, m4, luma, chroma
+    for k, v in zip(("size_map8", "mode_map8", "mode_map4", "luma",
+                     "chroma"), run(p, nxn, *src)):
+        out[f"nxnrec_{k}"] = v
+    costs = dp_inputs()
+    for name, (intra, inter) in DP_GATES.items():
+        p = MdInterPipeline(H, W, 22, pu_depth=intra, pu_depth_inter=inter)
+
+        def dp(c8, c16, c32, c64, p=p):
+            return p._dp_merge({8: {"cost": c8}, 16: {"cost": c16},
+                                32: {"cost": c32}, 64: {"cost": c64}},
+                               p.lam2[0])
+        out[f"dp_{name}"] = run(p, dp, *(jnp.asarray(costs[n])
+                                         for n in (8, 16, 32, 64)))
+    inp = subpel_inputs()
+    for s in (0, 2, 4):
+        p = MdInterPipeline(H, W, 22, subme=s, smp=True)
+        P = p.SUBPEL_PAD
+
+        def subpel(ref, blocks, y0, x0, mv, p=p, P=P):
+            ypad = jnp.pad(ref, P, mode="edge")
+            a = p._refine_subpel(blocks, ypad, y0, x0, mv, P)
+            b = p._refine_subpel(blocks[:, :8], ypad, y0, x0, mv, P)
+            return a + b
+        res = run(p, subpel, *(jnp.asarray(inp[k]) for k in
+                               ("ref", "blocks", "y0", "x0", "mv")))
+        for k, v in zip(("mv", "satd", "mv_half", "satd_half"), res):
+            out[f"subpel{s}_{k}"] = v
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _preset_part(part: str) -> dict:
+    """The arrays of one part of the presets golden: a PRESET_CONFIGS
+    stream (all-intra through encode_frame, presets through
+    encode_sequence) or the stages ("stages")."""
+    import time
+    t = time.perf_counter()
+    if part == "stages":
+        data = jax_preset_stages()
+    elif PRESET_CONFIGS[part][1] == "gop":
+        stream, decs, _ = jax_gop_stream(preset_frames(part), PRESET_KEYS,
+                                         **preset_config(part))
+        data = _stream_arrays(part + "_", stream, decs)
+    else:
+        data = _stream_arrays(part + "_", *jax_stream(
+            preset_frames(part), PRESET_KEYS, **preset_config(part)))
+    print(f"{part}: {time.perf_counter() - t:.1f} s", flush=True)
+    return data
+
+
+def write_presets_golden(path: str = OUT_PRESETS, workers: int = 2) -> None:
+    """Each part in a fresh process, `workers` at a time (as
+    write_gop_golden)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    parts = ["medium", "placebo", "ultrafast", "stages", "rd3", "nxn",
+             "d44", "d00"]
+    data = {}
+    with ProcessPoolExecutor(workers, max_tasks_per_child=1,
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as ex:
+        for arrays in ex.map(_preset_part, parts):
+            data.update(arrays)
+    _save(path, data)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop"]
+    which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
+                             "presets"]
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
-         "gop": write_gop_golden}[w]()
+         "gop": write_gop_golden, "presets": write_presets_golden}[w]()

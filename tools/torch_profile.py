@@ -20,7 +20,10 @@ at QP 27 with the default tools and with bench.py's scenario 1 tool row
 run: the unprofiled submit, wavefront and SAO ms and the waves, then the
 kernel launches and kernel-busy ms a wave step over the first
 WAVE_STEPS steps of a second encode of the frame (the step is the same
-ops on every step, masked over the class rows).
+ops on every step, masked over the class rows). With --wave medium the
+two runs are the tool row and the intra frame of --preset medium at QP
+27, which is the tool row with NxN 4x4 leaves (--pu-depth-intra 1-4), in
+turns (tool row, medium, medium, tool row).
 
 With --recon it times the stages of IDR + 2 B frames at 1080p and QP 27
 with the default tools and with SAO full + RDOQ + sign hiding
@@ -39,13 +42,15 @@ of its unprofiled wall time).
 
 Usage (on a machine with a GPU):
     python3 tools/torch_profile.py [frames] [--leaf]
-    python3 tools/torch_profile.py --wave | --recon | --p
+    python3 tools/torch_profile.py --wave [medium] | --recon | --p
 """
 from __future__ import annotations
 
 import os
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -151,21 +156,26 @@ def main(n_frames: int = 3, leaf_only: bool = False) -> None:
 WAVE_STEPS = 24
 
 
-def wave_profile() -> None:
+def wave_profile(other: str = "default") -> None:
+    """The tool row's IDR against `other`'s: "default" (no tools) or
+    "medium" (--preset medium's intra frame at QP 27)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import TOOL_ROW, mixed_frames, smi, wrap_timed
     from kvazaar_tpu_torch.api import Encoder
-    from kvazaar_tpu_torch.cfg import Config
+    from kvazaar_tpu_torch.cfg import PRESETS, Config
     w, h = 1920, 1080
     frame = mixed_frames(1, w, h)[0]
     cfgs = {"default": dict(qp=27, intra_period=1),
-            "tool row": dict(TOOL_ROW, intra_period=1)}
-    Encoder(Config(width=w, height=h, **cfgs["default"])).encode_frame(
+            "tool row": dict(TOOL_ROW, intra_period=1),
+            "medium": dict(PRESETS["medium"], qp=27, intra_period=1)}
+    Encoder(Config(width=w, height=h, **cfgs[other])).encode_frame(
         *frame)                                   # warm-up, not counted
     print(smi("name,power.limit"), flush=True)
-    for label in ("default", "tool row", "tool row", "default"):
+    order = ((other, "tool row", "tool row", other) if other == "default"
+             else ("tool row", other, other, "tool row"))
+    for label in order:
         enc = Encoder(Config(width=w, height=h, **cfgs[label]))
         pipe = enc._pipeline
         times: dict = {}
@@ -175,7 +185,10 @@ def wave_profile() -> None:
         steps = -(-int(info["n_waves"]) // pipe.WAVE_CHECK) \
             * pipe.WAVE_CHECK
         wave_ms = times["_recon_md"][0]
-        print(f"{label}: IDR {info['bytes']} bytes, waves "
+        codes, cnt = np.unique(enc._last_decisions["size_map8"],
+                               return_counts=True)
+        print(f"{label}: IDR {info['bytes']} bytes, cells by size code "
+              f"{dict(zip(codes.tolist(), cnt.tolist()))}, waves "
               f"{info['n_waves']} ({steps} wave steps); submit "
               f"{times['submit'][0]:.1f} ms, wavefront {wave_ms:.1f} ms "
               f"({wave_ms / steps:.2f} ms a step), SAO "
@@ -327,7 +340,7 @@ if __name__ == "__main__":
     if "--p" in sys.argv[1:]:
         p_profile()
     elif "--wave" in sys.argv[1:]:
-        wave_profile()
+        wave_profile("medium" if "medium" in sys.argv[1:] else "default")
     elif "--recon" in sys.argv[1:]:
         recon_compare()
     else:
