@@ -43,7 +43,8 @@ Phases (each prints its lines; any failure exits non-zero):
    hash-exact, some B frame predicting from a second reference picture
    and some B frame running its wavefront; per frame POC, QP, list 0,
    bytes, PSNR, waves and times; then the same configuration at 416x240
-   (6 frames) on cuda and on the CPU: the same stream and maps;
+   (5 frames: every position of the GOP) on cuda and on the CPU: the same
+   stream and maps;
 8. the P program (--no-bipred) with SMP, AMP and --ref 2: IDR + 3 P of
    split-motion content at 1920x1080 (8 me_refine and 8 one-list
    me_eval launches a P frame), hash-exact, some P frame choosing a
@@ -51,7 +52,7 @@ Phases (each prints its lines; any failure exits non-zero):
    PSNR, waves, cells by part id and the submit, wavefront and host
    entropy times (SMP slices are coded by the Python writer); then that
    configuration (IDR + 2 P) and lp-g4d3t1 --ref 2 --no-bipred with the
-   tool row (6 frames) at 416x240 on cuda and on the CPU: the same
+   tool row (5 frames) at 416x240 on cuda and on the CPU: the same
    streams and maps;
 9. the GOP8 B pyramid (bench scenario 3, -p 24 --gop 8) with scenario
    1's tool row at QP 27: 12 frames at 1920x1080 fed in display order
@@ -60,9 +61,9 @@ Phases (each prints its lines; any failure exits non-zero):
    hash-exact, decoded in display order, some B frame predicting from a
    future picture of list 1; per frame the display index, POC, slice and
    NAL type, QP, l0, l1, bytes, PSNR, waves and times; then --gop 8 -p 8
-   --open-gop at 416x240 (12 frames: IDR, CRA 8 with seven RASL
-   pictures, P 10, B 9, P 11) on cuda and on the CPU: the same stream and
-   maps, with CRA, RASL_R and RASL_N pictures;
+   --open-gop at 416x240 (10 frames: IDR, CRA 8 with seven RASL
+   pictures, P 9) on cuda and on the CPU: the same stream and maps, with
+   CRA, RASL_R and RASL_N pictures;
 10. the preset ladder: --preset medium (NxN 4x4 leaves, GOP 16, --ref 4,
    SAO full and RDOQ; bench.py's comparison point) on 5 frames at
    1920x1080 and QP 22 fed through push_frame/flush (IDR, P 4, B 2 1 3:
@@ -73,11 +74,28 @@ Phases (each prints its lines; any failure exits non-zero):
    0-4, --rd 3, the tool row with sign hiding) on one frame of half
    detailed, half flat content at 416x240, at least 2% of its cells NxN
    and 5% 64x64 leaves; and ultrafast, veryfast, fast, medium, slow and
-   placebo at 416x240 (3 frames each).
-The hash-exact decodes of phases 4-10's encodes run in a worker process
-beside the later phases, and are checked after phase 10.
+   placebo at 416x240 (3 frames each);
+11. WPP, rate control and delta QP: (i) the default configuration with
+   --wpp --slices wpp, IDR + 2 B at 1920x1080 (17 slice segments a
+   picture, the later ones dependent, through the Python writers),
+   hash-exact, its maps equal to phase 4's on the same frames; (ii) the
+   default configuration with --wpp --bitrate 10000000 (lambda rate
+   control at the default 25 fps), IDR + 3 B at 1920x1080 (17
+   substreams a slice from the native writers), hash-exact, with per
+   frame the QP and bits, the QP moving; (iii) -p 1 --bitrate 10000000 --rc-algorithm oba --wpp
+   (LCU rate control: a QP a CTB), 2 frames at 1920x1080, hash-exact,
+   the first frame's CTB QPs not all equal (the second frame's lambda
+   comes from OBA's initial model before the first frame's bits are
+   known, as in the reference; on this content every CTB of it sits on
+   the clip band's floor, which is printed); (iv) on cuda and on the CPU at
+   416x240 with the same streams and maps: --vaq 8 --roi with the tool
+   row (2 frames) and --gop 4 --wpp --slices wpp with OBA rate control
+   and the intra bit allocation (5 frames: IDR, P 4, B 2 1 3).
+The hash-exact decodes of phases 4-11's encodes run in a worker process
+beside the later phases, and are checked after phase 11; the CPU half of
+every cuda-against-CPU run runs in another, beside its cuda half.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6, 7, 8, 9 and 10; me_eval's pair and
+over the encodes of phases 4, 6, 7, 8, 9, 10 and 11; me_eval's pair and
 one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
@@ -143,6 +161,19 @@ INTRA_LEAVES = dict(qp=27, intra_period=1, pu_depth_intra=(0, 4), rd=3,
                     sao_type="full", rdoq_enable=True,
                     signhide_enable=True)
 LEAF_SHARES = {4: 0.02, 64: 0.05}
+# phase 11: WPP with a slice segment a CTB row; lambda rate control at 10
+# Mbit/s (25 fps) with WPP; all-intra OBA rate control (a QP a CTB); at
+# 416x240, VAQ with a ROI map (SMOKE_ROI: 4x3 delta QPs over the CTBs)
+# and the tool row, and the B pyramid with WPP slices and OBA rate
+# control (the CPU tests' golden "gop_oba", tools/torch_goldens.py)
+WPP_SLICES = dict(wpp=True, slices="wpp")
+WPP_RC = dict(wpp=True, target_bitrate=10_000_000)
+LCU_OBA = dict(intra_period=1, target_bitrate=10_000_000,
+               rc_algorithm="oba", wpp=True)
+VAQ_ROI = dict(TOOL_ROW, vaq=8)
+GOP_OBA = dict(gop_len=4, wpp=True, slices="wpp", target_bitrate=2_000_000,
+               rc_algorithm="oba", intra_bits=True)
+SMOKE_ROI = "4 3\n-4 0 3 6\n2 -2 5 -6\n1 1 -3 0\n"
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -150,7 +181,7 @@ NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
-    for pool in _POOL:
+    for pool in _POOLS.values():
         pool.shutdown(wait=True, cancel_futures=True)
     sys.exit(1)
 
@@ -396,31 +427,38 @@ def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1):
         "me_eval": eval_errors(me, ref, blocks, mvs, n, cols, ref1)}
 
 
+def encode_coded(frames, w, h, dev, cfg):
+    """(chunk, decision maps as numpy arrays, waves) per coded frame of
+    frames encoded through encode_sequence on dev with cfg."""
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    enc = Encoder(Config(width=w, height=h, **cfg), device=dev)
+    coded = []
+
+    def record(meta, finalize=enc.finalize_frame):
+        chunk, info = finalize(meta)
+        maps = {k: (v.cpu().numpy() if hasattr(v, "cpu")
+                    else np.asarray(v))
+                for k, v in enc._last_decisions.items()}
+        coded.append((chunk, maps, int(info["n_waves"])))
+        return chunk, info
+    enc.finalize_frame = record
+    encode_sequence(enc.cfg, frames, encoder=enc)
+    return coded
+
+
 def compare_devices(frames, w, h, **cfg):
     """Encode display-order frames through encode_sequence with the
     configuration cfg (Config options; the defaults when empty) on cuda
-    and on the CPU, where the kernels' plain versions run. Returns the
+    and on the CPU, where the kernels' plain versions run; the CPU encode
+    runs in the "cpu" worker process beside the cuda one. Returns the
     cuda stream and, per coded frame (coding order), whether both chunks
     are identical, the decision maps that differ, the waves of the
     wavefront on each device, and the cuda encode's 8x8 cells inside the
     picture by size code."""
-    from kvazaar_tpu_torch.api import Encoder, encode_sequence
-    from kvazaar_tpu_torch.cfg import Config
-    res = {}
-    for dev in ("cuda", "cpu"):
-        enc = Encoder(Config(width=w, height=h, **cfg), device=dev)
-        res[dev] = []
-
-        def record(meta, enc=enc, finalize=enc.finalize_frame,
-                   coded=res[dev]):
-            chunk, info = finalize(meta)
-            maps = {k: (v.cpu().numpy() if hasattr(v, "cpu")
-                        else np.asarray(v))
-                    for k, v in enc._last_decisions.items()}
-            coded.append((chunk, maps, int(info["n_waves"])))
-            return chunk, info
-        enc.finalize_frame = record
-        encode_sequence(enc.cfg, frames, encoder=enc)
+    cpu = worker_pool("cpu").submit(encode_coded, frames, w, h, "cpu", cfg)
+    res = {"cuda": encode_coded(frames, w, h, "cuda", cfg),
+           "cpu": cpu.result()}
     rows = [{"same_stream": ca == cb,
              "differing_maps": [k for k in ma if k in mb
                                 and not np.array_equal(ma[k], mb[k])],
@@ -704,7 +742,7 @@ def phase_kernels(me, torch, rates):
     return out
 
 
-def encode_timed(torch, me, cfg, frames, label):
+def encode_timed(torch, me, cfg, frames, label, native=True):
     """Encode display-order frames through encode_sequence on cuda with
     the Config options cfg, the kernel launch counters set to 0 just
     before and read just after. Prints the run and, per coded frame
@@ -713,15 +751,17 @@ def encode_timed(torch, me, cfg, frames, label):
     frames with SMP) and the host-clock times (synchronized) of the
     frame's submit, its wavefront, its SAO and its host entropy coding.
     Fails unless every frame without SMP PUs was coded by the native
-    slice writers (SMP slices take the Python writer), each B frame
-    launched me_refine 8 times a reference picture of its stacks (4
-    sizes x 2 lists) and me_eval 12 times, each P frame me_refine 4 times
-    a picture of its stack and me_eval 8 times in its one-list mode.
+    slice writers (SMP slices take the Python writer; with native False,
+    for --slices and delta QP, every frame the Python writers), each B
+    frame launched me_refine 8 times a reference picture of its stacks
+    (4 sizes x 2 lists) and me_eval 12 times, each P frame me_refine 4
+    times a picture of its stack and me_eval 8 times in its one-list
+    mode.
     Queues the stream's decode (decode_check), which check_decodes
     requires to be hash-exact, in display order and equal to the
     encoder's reconstruction. Returns (launches, infos, per coded frame the
-    reference maps inter8, dir8, ref8, ref8b and part8 where present,
-    with the frame's plan: disp, l0, l1, nal)."""
+    maps size_map8, inter8, dir8, ref8, ref8b, part8 and qp_ctb where
+    present, with the frame's plan: disp, l0, l1, nal)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
@@ -739,7 +779,7 @@ def encode_timed(torch, me, cfg, frames, label):
         out = finalize(meta)
         m = {k: np.asarray(enc._last_decisions[k])
              for k in ("size_map8", "inter8", "dir8", "ref8", "ref8b",
-                       "part8")
+                       "part8", "qp_ctb")
              if k in enc._last_decisions}
         m.update(disp=meta["frame_num"], l0=list(meta["l0"]),
                  l1=list(meta["l1"]),
@@ -792,35 +832,50 @@ def encode_timed(torch, me, cfg, frames, label):
               f"{m['nal']}, QP {i['qp']}, l0 {m['l0']}, l1 {m['l1']}): "
               f"{i['bytes']} bytes, PSNR Y "
               f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
-              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}{parts}; submit "
+              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}{parts}, "
+              f"substreams {i['substreams']} in {i['slices']} slice "
+              f"segment(s); submit "
               f"wall {sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
               f"{'off' if sao_ms is None else f'{sao_ms:.2f} ms'}, host "
               f"entropy coding {host:.1f} ms", flush=True)
     if launches != expect:
         fail(f"{label}: kernel launches {launches} != {expect}")
-    if enc.native_slices != len(infos) - smp:
+    if native and enc.native_slices != len(infos) - smp:
         fail(f"{label}: the native slice writers were not used for every "
              "frame without SMP")
+    if not native and enc.native_slices:
+        fail(f"{label}: a native slice writer coded a frame that the "
+             "Python writers must code")
     recon = [tuple(np.asarray(a) for a in i["recon_out"]) for i in infos]
-    _DECODES.append((label, len(frames), decoder_pool().submit(
+    _DECODES.append((label, len(frames), worker_pool("decode").submit(
         decode_check, stream, recon, [m["disp"] for m in maps])))
     return launches, infos, maps
 
 
 # The hash-exact decodes of the encode_timed runs (the Python decoder,
-# 1-3 s a 1080p frame) run in one worker process beside the next phases;
-# main() waits for them and checks them before it reports.
+# 1-3 s a 1080p frame) run in one worker process ("decode") beside the
+# next phases; main() waits for them and checks them before it reports.
+# The CPU halves of compare_devices run in another ("cpu", CPU_THREADS
+# intra-op threads) beside their cuda halves.
 _DECODES: list = []
-_POOL: list = []
+_POOLS: dict = {}
+CPU_THREADS = 4
 
 
-def decoder_pool():
-    if not _POOL:
+def _cpu_worker_init():
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+
+
+def worker_pool(name: str):
+    """The one-process pool (spawn) of that name, "decode" or "cpu"."""
+    if name not in _POOLS:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
-        _POOL.append(ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")))
-    return _POOL[0]
+        _POOLS[name] = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init if name == "cpu" else None)
+    return _POOLS[name]
 
 
 def decode_check(stream, recon, disp):
@@ -856,7 +911,7 @@ def check_decodes() -> None:
         if not same:
             fail(f"{label}: decoded planes differ from the encoder's "
                  "reconstruction")
-    for pool in _POOL:
+    for pool in _POOLS.values():
         pool.shutdown()
     print(f"decodes: waited {time.perf_counter() - t:.1f} s after the last "
           "phase", flush=True)
@@ -904,17 +959,18 @@ def second_ref_blocks(m: dict) -> int:
 def phase_main(torch, me):
     """1 IDR + 3 B frames at 1920x1080 through encode_sequence on cuda
     with the default configuration; every B frame must run the
-    wavefront."""
+    wavefront. Returns the launches and the frames' maps."""
     from kvazaar_tpu_torch.api import encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     frames = mixed_frames(4, W, H)
     # warm-up encode (library initialisation, allocator), not counted
     encode_sequence(Config(width=W, height=H), frames[:2], device="cuda")
     torch.cuda.synchronize()
-    launches, infos, _ = encode_timed(torch, me, {}, frames, "main path")
+    launches, infos, maps = encode_timed(torch, me, {}, frames,
+                                         "main path")
     if any(int(i["n_waves"]) == 0 for i in infos if i["slice_type"] == 0):
         fail("a B frame coded no intra leaf: its wavefront did not run")
-    return launches
+    return launches, maps
 
 
 def phase_tools(torch, me):
@@ -928,15 +984,7 @@ def phase_tools(torch, me):
     t = time.perf_counter()
     _, rows = compare_devices(mixed_frames(2, 416, 240), 416, 240,
                               **TOOL_LDB)
-    for i, r in enumerate(rows):
-        print(f"tool row (c) device parity 416x240 frame {i}: stream "
-              f"identical {r['same_stream']}, differing maps "
-              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
-              flush=True)
-    print(f"tool row (c) device parity: {time.perf_counter() - t:.1f} s",
-          flush=True)
-    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
-        fail("tool row: cuda and CPU encodes differ")
+    parity_rows("tool row (c)", rows, t)
     return {k: la[k] + lb[k] for k in la}
 
 
@@ -946,9 +994,9 @@ def phase_lowdelay(torch, me):
     on) at 1080p through encode_sequence on cuda, hash-exact; some B
     frame must predict from a second reference picture (outside POC 1,
     whose lists repeat one picture) and some B frame must run its
-    wavefront. Then the same configuration at 416x240 on cuda and on the
-    CPU: the same stream and maps. Returns the launches of the 1080p
-    encode."""
+    wavefront. Then the same configuration at 416x240 (5 frames) on cuda
+    and on the CPU: the same stream and maps. Returns the launches of the
+    1080p encode."""
     cfg = dict(TOOL_ROW, **LOWDELAY)
     launches, infos, maps = encode_timed(
         torch, me, cfg, mixed_frames(6, W, H), "low-delay (bench scenario 2)")
@@ -961,16 +1009,8 @@ def phase_lowdelay(torch, me):
     if not any(int(i["n_waves"]) for i in infos if i["slice_type"] == 0):
         fail("low-delay: no B frame coded an intra leaf (no wavefront)")
     t = time.perf_counter()
-    _, rows = compare_devices(mixed_frames(6, 416, 240), 416, 240, **cfg)
-    for i, r in enumerate(rows):
-        print(f"low-delay device parity 416x240 frame {i}: stream "
-              f"identical {r['same_stream']}, differing maps "
-              f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
-              flush=True)
-    print(f"low-delay device parity: {time.perf_counter() - t:.1f} s",
-          flush=True)
-    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
-        fail("low-delay: cuda and CPU encodes differ")
+    _, rows = compare_devices(mixed_frames(5, 416, 240), 416, 240, **cfg)
+    parity_rows("low-delay", rows, t)
     return launches
 
 
@@ -982,7 +1022,7 @@ def phase_p(torch, me):
     me_refine and 8 me_eval launches a P frame; some P frame must choose
     a rectangular PU and some P frame must run its wavefront. Then the
     same configuration at 416x240 (IDR + 2 P) and lp-g4d3t1 --ref 2
-    --no-bipred with the tool row (6 frames of mixed_frames at 416x240)
+    --no-bipred with the tool row (5 frames of mixed_frames at 416x240)
     on cuda and on the CPU: the same streams and maps. Returns the
     launches of the 1080p encode."""
     def frames(n, w, h):
@@ -1000,19 +1040,10 @@ def phase_p(torch, me):
     for label, cfg, fr in (
             ("P SMP/AMP", P_SMP, frames(3, 416, 240)),
             ("P low-delay", dict(TOOL_ROW, bipred=False, **LOWDELAY),
-             mixed_frames(6, 416, 240))):
+             mixed_frames(5, 416, 240))):
         t = time.perf_counter()
         _, rows = compare_devices(fr, 416, 240, **cfg)
-        for i, r in enumerate(rows):
-            print(f"{label} device parity 416x240 frame {i}: stream "
-                  f"identical {r['same_stream']}, differing maps "
-                  f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
-                  flush=True)
-        print(f"{label} device parity: {time.perf_counter() - t:.1f} s",
-              flush=True)
-        if not all(r["same_stream"] and not r["differing_maps"]
-                   for r in rows):
-            fail(f"{label}: cuda and CPU encodes differ")
+        parity_rows(label, rows, t)
     return launches
 
 
@@ -1021,7 +1052,7 @@ def phase_gop(torch, me):
     1080p through encode_sequence on cuda (push_frame/flush), hash-exact
     and decoded in display order; some B frame must predict from a
     future picture of list 1. Then --gop 8 -p 8 --open-gop at 416x240
-    (12 frames) on cuda and on the CPU: the same stream and maps, with
+    (10 frames) on cuda and on the CPU: the same stream and maps, with
     CRA, RASL_R and RASL_N pictures. Returns the launches of the 1080p
     encode."""
     launches, infos, maps = encode_timed(
@@ -1034,7 +1065,7 @@ def phase_gop(torch, me):
     if not any(fut.values()):
         fail("GOP8: no B frame predicts from a future picture")
     t = time.perf_counter()
-    stream, rows = compare_devices(mixed_frames(12, 416, 240), 416, 240,
+    stream, rows = compare_devices(mixed_frames(10, 416, 240), 416, 240,
                                    **OPEN_GOP)
     for i, r in enumerate(rows):
         print(f"open GOP device parity 416x240 frame {i}: stream "
@@ -1091,17 +1122,80 @@ def phase_presets(torch, me):
         t = time.perf_counter()
         _, rows = compare_devices(mixed_frames(3, 416, 240), 416, 240,
                                   **PRESETS[name])
-        for i, r in enumerate(rows):
-            print(f"preset {name} device parity 416x240 frame {i}: stream "
-                  f"identical {r['same_stream']}, differing maps "
-                  f"{r['differing_maps']}, waves cuda/cpu {r['waves']}",
-                  flush=True)
-        print(f"preset {name} device parity: {time.perf_counter() - t:.1f} "
-              "s", flush=True)
-        if not all(r["same_stream"] and not r["differing_maps"]
-                   for r in rows):
-            fail(f"preset {name}: cuda and CPU encodes differ")
+        parity_rows(f"preset {name}", rows, t)
     return launches
+
+
+def parity_rows(label, rows, t) -> None:
+    """Print compare_devices' rows; fail unless every frame's stream and
+    maps are the same on cuda and on the CPU."""
+    for i, r in enumerate(rows):
+        print(f"{label} device parity 416x240 frame {i}: stream identical "
+              f"{r['same_stream']}, differing maps {r['differing_maps']}, "
+              f"waves cuda/cpu {r['waves']}", flush=True)
+    print(f"{label} device parity: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if not all(r["same_stream"] and not r["differing_maps"] for r in rows):
+        fail(f"{label}: cuda and CPU encodes differ")
+
+
+def phase_rc(torch, me, main_maps):
+    """WPP, rate control and delta QP: (i) WPP_SLICES, IDR + 2 B of
+    mixed_frames at 1080p, 17 slice segments a picture, the maps those
+    of the main path's first three frames; (ii) WPP_RC, IDR + 3 B at
+    1080p, 17 substreams a slice, the QP moving; (iii) LCU_OBA, 2 frames
+    at 1080p, the first frame's CTB QPs not all equal; all hash-exact. (iv)
+    VAQ_ROI (2 frames) and GOP_OBA (5 frames) at 416x240 on cuda and on
+    the CPU: the same streams and maps. Returns the launches of (i) to
+    (iii)."""
+    import tempfile
+    rows_ctb = -(-H // 64)
+    li, infos, maps = encode_timed(torch, me, WPP_SLICES,
+                                   mixed_frames(3, W, H),
+                                   "WPP slices (i)", native=False)
+    if any((i["slices"], i["substreams"]) != (rows_ctb, rows_ctb)
+           for i in infos):
+        fail(f"WPP slices: not {rows_ctb} slice segments a picture")
+    for k, (m, mm) in enumerate(zip(maps, main_maps)):
+        bad = [key for key, v in m.items() if key in mm
+               and isinstance(v, np.ndarray)
+               and not np.array_equal(v, mm[key])]
+        print(f"  frame {k}: maps that differ from the main path's {bad}",
+              flush=True)
+        if bad:
+            fail("WPP slices: maps differ from the main path's")
+    lii, infos, _ = encode_timed(torch, me, WPP_RC, mixed_frames(4, W, H),
+                                 "WPP + lambda RC (ii)")
+    qps = [i["qp"] for i in infos]
+    print(f"  QP {qps}, bits {[8 * i['bytes'] for i in infos]}",
+          flush=True)
+    if len(set(qps)) < 2:
+        fail("WPP + lambda RC: the QP never moved")
+    if any((i["slices"], i["substreams"]) != (1, rows_ctb) for i in infos):
+        fail(f"WPP + lambda RC: not {rows_ctb} substreams in one slice")
+    liii, infos, maps = encode_timed(torch, me, LCU_OBA,
+                                     mixed_frames(2, W, H),
+                                     "LCU OBA RC (iii)", native=False)
+    for k, (i, m) in enumerate(zip(infos, maps)):
+        q = m["qp_ctb"]
+        vals, cnt = np.unique(q, return_counts=True)
+        print(f"  frame {k}: frame QP {i['qp']}, CTB QPs "
+              f"{int(q.min())}..{int(q.max())}, CTBs by QP "
+              f"{dict(zip(vals.tolist(), cnt.tolist()))}", flush=True)
+    if maps[0]["qp_ctb"].min() == maps[0]["qp_ctb"].max():
+        fail("LCU OBA RC: the first frame's CTB QPs are all equal")
+    with tempfile.TemporaryDirectory() as tmp:
+        roi = os.path.join(tmp, "roi.txt")
+        with open(roi, "w") as f:
+            f.write(SMOKE_ROI)
+        for label, cfg, n in (
+                ("VAQ + ROI (iv)", dict(VAQ_ROI, roi_file=roi), 2),
+                ("GOP 4 WPP slices OBA (iv)", GOP_OBA, 5)):
+            t = time.perf_counter()
+            _, rows = compare_devices(mixed_frames(n, 416, 240), 416, 240,
+                                      **cfg)
+            parity_rows(label, rows, t)
+    return {k: li[k] + lii[k] + liii[k] for k in li}
 
 
 def phase_device_parity():
@@ -1173,13 +1267,15 @@ def main() -> None:
           flush=True)
 
     kern = phase_kernels(me, torch, rates)
-    runs = [phase_main(torch, me)]
+    main_launches, main_maps = phase_main(torch, me)
+    runs = [main_launches]
     phase_device_parity()
     runs.append(phase_tools(torch, me))
     runs.append(phase_lowdelay(torch, me))
     runs.append(phase_p(torch, me))
     runs.append(phase_gop(torch, me))
     runs.append(phase_presets(torch, me))
+    runs.append(phase_rc(torch, me, main_maps))
     check_decodes()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "

@@ -2,8 +2,12 @@
 
 Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
 at a time, returning Annex-B chunks) for the configuration this port
-covers: CTB 64, 8-bit, constant QP, deblocking, SAO, RDOQ and sign-data
-hiding, an IDR every `intra_period` frames and low-delay frames in
+covers: CTB 64, 8-bit, deblocking, SAO, RDOQ and sign-data hiding, WPP
+(--wpp; --slices wpp codes a slice segment a CTB row), rate control
+(--bitrate with --rc-algorithm lambda or oba: a QP a frame, and on
+all-intra streams a QP a CTB), delta QP (--vaq, --roi: every frame
+intra, a QP a CTB), an IDR every `intra_period` frames and low-delay
+frames in
 between with 1-4 reference pictures (--ref): generalized-B slices (list 1
 = list 0, bi-prediction on; the B program searches the first two of each
 list) or, with --no-bipred, P slices (SMP/AMP rectangular PUs with
@@ -15,6 +19,11 @@ in coding order (engine/gop.py's GopScheduler), a P anchor (or an
 open-GOP CRA picture) then the dyadic B pictures with past pictures in
 list 0 and future ones in list 1. Options outside that raise
 NotImplementedError naming their ROADMAP.md entry.
+
+Rate control chooses a frame's QP when its device work is submitted and
+learns from its bits when it is finalized, so in the pipelined loops
+(encode_sequence, push_frame's spans, the CLI, capi.py's ring) frame N+1's
+QP is chosen before frame N's bits are known, as in the reference.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
 there as the reference pictures; the native C++ slice writers code the
@@ -81,17 +90,41 @@ def build_pps(cfg: Config) -> PPS:
     pps.sign_data_hiding_enabled = 1 if cfg.signhide_enable else 0
     pps.transform_skip_enabled = 0
     pps.transquant_bypass_enabled = 0
-    pps.entropy_coding_sync_enabled = 0
+    pps.entropy_coding_sync_enabled = 1 if cfg.wpp else 0
     pps.deblocking_filter_control_present = 1
     pps.deblocking_filter_disabled = 0 if cfg.deblock_enable else 1
     pps.beta_offset_div2 = cfg.deblock_beta
     pps.tc_offset_div2 = cfg.deblock_tc
     pps.loop_filter_across_slices = 1
+    if cfg.slices != "none":
+        # a slice segment a WPP row, the later ones dependent (spec
+        # 7.4.7.1)
+        pps.dependent_slice_segments_enabled = 1
     return pps
 
 
 def check_config(cfg: Config) -> None:
-    """Raise NotImplementedError for options outside the ported slice."""
+    """Raise where the reference encoder refuses the options (ValueError,
+    or NotImplementedError for what it does not implement), and
+    NotImplementedError naming the ROADMAP.md entry for options outside
+    the ported slice."""
+    if cfg.slices not in ("none", "tiles", "wpp"):
+        raise ValueError("--slices must be tiles or wpp")
+    if cfg.slices == "wpp" and not cfg.wpp:
+        raise ValueError("--slices wpp requires --wpp")
+    if cfg.slices == "tiles" and tuple(cfg.tiles) == (1, 1):
+        raise ValueError("--slices tiles requires a tile grid")
+    # VAQ and ROI code every frame intra, as --period 1 does: no GOP and
+    # no SMP/AMP then (the reference refuses both)
+    all_intra = cfg.intra_period == 1 or bool(cfg.vaq or cfg.roi_file)
+    if cfg.gop_len > 1 and all_intra:
+        raise NotImplementedError(
+            "a GOP (--gop) needs inter frames: not with --period 1, "
+            "--vaq or --roi")
+    if (cfg.smp_enable or cfg.amp_enable) and all_intra \
+            and cfg.intra_period != 1:
+        raise NotImplementedError(
+            "SMP/AMP needs inter frames: not with --vaq or --roi")
     intra = "the remaining intra variants"
     tiles = "tiles/multi-device"
     grid16 = "the 16-grid pipelines"
@@ -102,14 +135,11 @@ def check_config(cfg: Config) -> None:
             (cfg.lossless, "lossless", intra),
             (cfg.scaling_list != "off" or bool(cfg.cqmfile),
              "scaling lists", intra),
-            (bool(cfg.vaq or cfg.roi_file), "delta QP (VAQ/ROI)", intra),
-            (cfg.target_bitrate > 0, "rate control", intra),
-            (cfg.wpp, "WPP", intra),
             (bool(cfg.fast_coeff_table), "--fast-coeff-table", intra),
             (cfg.crypto not in ("off", ""), "selective encryption", intra),
             (cfg.source_scan_type != "progressive", "field coding", intra),
             (tuple(cfg.tiles) != (1, 1), "tiles", tiles),
-            (cfg.slices != "none", "--slices", tiles)):
+            (cfg.slices == "tiles", "--slices tiles", tiles)):
         if bad:
             raise unsupported(what, entry)
 
@@ -117,7 +147,8 @@ def check_config(cfg: Config) -> None:
 class Encoder:
     """HEVC encoder on the quadtree path: IDR + low-delay generalized-B
     or (--no-bipred) P frames, optionally in the lp GOP (submit_frame /
-    finalize_frame), or the B pyramid (push_frame / flush)."""
+    finalize_frame), or the B pyramid (push_frame / flush); all-intra
+    with --period 1, --vaq or --roi."""
 
     def __init__(self, cfg: Config, device="cuda") -> None:
         import torch
@@ -138,7 +169,24 @@ class Encoder:
         self.pps = build_pps(cfg)
         self.frame_num = 0
         self.poc = 0
-        self.inter_enabled = cfg.intra_period != 1
+        # VAQ / ROI code every frame intra with a QP a CTB; rate control
+        # adds a QP a CTB (LCU RC) on all-intra streams only, and a QP a
+        # frame everywhere. QG == CTB (diff_cu_qp_delta_depth 0).
+        self.inter_enabled = (cfg.intra_period != 1
+                              and not (cfg.vaq or cfg.roi_file))
+        self.lcu_rc = cfg.target_bitrate > 0 and not self.inter_enabled
+        self.dqp_enabled = bool(cfg.vaq or cfg.roi_file) or self.lcu_rc
+        self._roi = None
+        if self.dqp_enabled:
+            self.pps.cu_qp_delta_enabled = 1
+            self.pps.diff_cu_qp_delta_depth = 0
+            if cfg.roi_file:
+                with open(cfg.roi_file) as f:
+                    vals = f.read().split()
+                rw, rh = int(vals[0]), int(vals[1])
+                arr = np.asarray(vals[2:2 + rw * rh],
+                                 np.int32).reshape(rh, rw)
+                self._roi = (rw, rh, arr)
         self.n_refs = max(1, min(cfg.ref_frames, 4))
         kw = dict(deblock=cfg.deblock_enable, deblock_beta=cfg.deblock_beta,
                   deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
@@ -154,8 +202,9 @@ class Encoder:
                 bipred=cfg.bipred, **kw)
         else:
             from .models.intra_md import MdIntraPipeline
-            self._pipeline = MdIntraPipeline(self.sps.height,
-                                             self.sps.width, cfg.qp, **kw)
+            self._pipeline = MdIntraPipeline(
+                self.sps.height, self.sps.width, cfg.qp,
+                delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp), **kw)
         # the low-delay GOP's per-position plan (--gop lp-gGdDtT)
         self._lp = None
         if cfg.gop_lowdelay and self.inter_enabled:
@@ -179,6 +228,21 @@ class Encoder:
         self._motion_fields: dict[int, dict] = {}
         # slices coded by the native (C++) writers, for run reports
         self.native_slices = 0
+        # rate control; --rc-algorithm no-rc keeps the QP constant even
+        # with a bitrate. Every frame is an IDR without inter frames, so
+        # the RC then counts the stream as all-intra (no IDR boost).
+        self._rc = None
+        if cfg.target_bitrate > 0 and cfg.rc_algorithm != "no-rc":
+            from .engine.rate_control import OBARateControl, RateControl
+            rc_cls = (OBARateControl if cfg.rc_algorithm == "oba"
+                      else RateControl)
+            self._rc = rc_cls(self.sps.width, self.sps.height,
+                              cfg.target_bitrate,
+                              cfg.framerate_num / cfg.framerate_denom,
+                              1 if not self.inter_enabled
+                              else cfg.intra_period,
+                              intra_bits=cfg.intra_bits,
+                              gop_len=max(cfg.gop_len, 1), rdo=cfg.rd)
 
     def _push_ref(self, entry: dict, keep: set | None = None) -> None:
         """Add a reference picture: the DPB then keeps the n_refs newest,
@@ -206,7 +270,7 @@ class Encoder:
         is_idr = (cfg.intra_period == 1
                   or (cfg.intra_period > 1
                       and self.frame_num % cfg.intra_period == 0)
-                  or not self._dpb)
+                  or not self._dpb or not self.inter_enabled)
         if is_idr:
             self.poc = 0
             self._dpb.clear()
@@ -232,7 +296,7 @@ class Encoder:
             spec = FrameSpec(disp_idx=self.frame_num, poc=self.poc,
                              is_ref=bool(ent["is_ref"]),
                              slice_type=0 if use_b else 1,
-                             qp_offset=ent["qp_offset"],
+                             layer=ent["layer"], qp_offset=ent["qp_offset"],
                              l0=l0, l1=list(l0) if use_b else [], keep=keep)
         else:
             l0 = [] if is_idr else [e["poc"] for e in self._dpb]
@@ -258,7 +322,10 @@ class Encoder:
                         mode="edge")
             cr = np.pad(cr, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
-        qp = self.cfg.qp + spec.qp_offset
+        # the rate control's QP (its model learns from the frames
+        # finalized so far), plus the GOP's offset
+        qp = (self._rc.frame_qp(spec.is_idr, y_plane=y, layer=spec.layer)
+              if self._rc else self.cfg.qp) + spec.qp_offset
         # the union of both lists, list 0 first: the P stack, and what the
         # slice writers map a one-list reference index through
         union = list(spec.l0) + [p for p in spec.l1 if p not in spec.l0]
@@ -266,7 +333,7 @@ class Encoder:
                 "frame_num": spec.disp_idx, "y": y, "cb": cb, "cr": cr,
                 "slice_type": spec.slice_type, "is_ref": spec.is_ref,
                 "l0": list(spec.l0), "l1": list(spec.l1), "union": union,
-                "keep": spec.keep, "nal": spec.nal}
+                "keep": spec.keep, "nal": spec.nal, "layer": spec.layer}
         by_poc = {e["poc"]: e for e in self._dpb}
 
         def stack(pocs):
@@ -282,6 +349,10 @@ class Encoder:
         elif spec.slice_type == 1:
             meta["dev"] = self._pipeline.submit_inter(
                 y, cb, cr, *stack(union), ref_pocs=union, qp=qp)
+        elif self.dqp_enabled:
+            meta["dev"] = self._pipeline.submit(
+                y, cb, cr, qp=qp,
+                qp_map=self._qp_map_for(y, cb, cr, qp, spec.is_idr))
         else:
             meta["dev"] = self._pipeline.submit(y, cb, cr, qp=qp)
         if self.inter_enabled and spec.is_ref:
@@ -292,6 +363,45 @@ class Encoder:
         # frame's own references
         meta["dpb_pocs"] = [e["poc"] for e in self._dpb]
         return meta
+
+    def _qp_map_for(self, y, cb, cr, base_qp: int,
+                    is_idr: bool = True) -> np.ndarray:
+        """The QP of each CTB: LCU rate control's allocation, or the
+        frame's QP, plus the ROI map's deltas and the VAQ offsets from
+        each CTB's variance against the frame's (kvazaar
+        src/encoderstate.c:1444-1526, rate_control.c:1082)."""
+        cfg = self.cfg
+        rc = self.sps.height // 64
+        cc = self.sps.width // 64
+        if self.lcu_rc and self._rc is not None:
+            qp = self._rc.lcu_qp_map((rc, cc), base_qp, is_idr,
+                                     y_plane=y).astype(np.float64)
+        else:
+            qp = np.full((rc, cc), base_qp, np.float64)
+        if self._roi is not None:
+            rw, rh, arr = self._roi
+            rx = np.arange(cc) * rw // cc
+            ry = np.arange(rc) * rh // rc
+            qp += arr[ry[:, None], rx[None, :]]
+        if cfg.vaq:
+            d = cfg.vaq * 0.1
+            yf = np.asarray(y, np.float64)
+            cbf_ = np.asarray(cb, np.float64)
+            crf = np.asarray(cr, np.float64)
+            fvar = yf.var() + cbf_.var() + crf.var()
+
+            def blkvar(p, n):
+                return p.reshape(rc, n, cc, n).var(axis=(1, 3))
+
+            lvar = blkvar(yf, 64) + blkvar(cbf_, 32) + blkvar(crf, 32)
+            with np.errstate(divide="ignore"):
+                aq = d * (np.log(lvar) - np.log(fvar))
+            off = np.sign(aq) * np.floor(np.abs(aq) + 0.5)  # C round()
+            # half the spec's delta range, as the reference clips
+            # (rate_control.c:1163-1166)
+            qp += np.clip(np.nan_to_num(off, nan=0.0, neginf=-13.0),
+                          -13, 12)
+        return np.clip(qp, 0, 51).astype(np.int32)
 
     # -- the B pyramid's feed --------------------------------------------
 
@@ -395,26 +505,41 @@ class Encoder:
                     sh.num_ref_idx_l1_active_minus1 = len(l1) - 1
         return sh
 
-    def _slice_data(self, meta, sh, decisions) -> tuple[list, object]:
+    def _slice_data(self, meta, sh, decisions):
         """Entropy-code the slice: the native C++ writers, or the Python
-        writers where the library cannot be built and for SMP/AMP slices
-        (the native writer has no part_mode syntax). Returns
-        (substreams, motion field for TMVP or None)."""
+        writers where the library cannot be built, for SMP/AMP slices
+        (the native writer has no part_mode syntax), under delta QP and
+        with --slices (as the reference routes them). With WPP each CTB
+        row is a substream that starts from the contexts saved after the
+        row above's second CTB, with the QP chain reset. Returns
+        (substreams, motion field for TMVP or None, the bits of each CTB
+        under LCU rate control or None)."""
         from . import native
         slice_type = meta["slice_type"]
         sdh = bool(self.pps.sign_data_hiding_enabled)
         sao = self.sps.sao_enabled
+        wpp = bool(self.pps.entropy_coding_sync_enabled)
+        seg_mode = self.cfg.slices != "none"
+        n_y, n_x = self.sps.height_in_ctbs, self.sps.width_in_ctbs
+        python_only = self.dqp_enabled or seg_mode
+
+        def split(data, sizes):
+            out, off = [], 0
+            for n in sizes:
+                out.append(data[off:off + n])
+                off += n
+            return out
         if slice_type == 2:
-            if native.available():
-                data, _ = native.encode_md_slice(
+            if native.available() and not python_only:
+                data, sizes = native.encode_md_slice(
                     decisions["size_map8"], decisions["mode_map8"],
                     decisions["levels_y"], decisions["levels_cb"],
-                    decisions["levels_cr"], sh.qp, False, sdh=sdh,
+                    decisions["levels_cr"], sh.qp, wpp, sdh=sdh,
                     sao_packed=native.pack_sao(decisions) if sao else None,
                     bit_depth=self.sps.bit_depth_luma,
                     mode4=decisions.get("mode_map4"))
                 self.native_slices += 1
-                return [data], None
+                return split(data, sizes), None, None
             from .engine.md_writer import MdIntraWriter
             writer = MdIntraWriter(self.sps, self.pps, sh, decisions)
         else:
@@ -428,36 +553,60 @@ class Encoder:
             writer = MdPSliceWriter(self.sps, self.pps, sh, decisions, re0,
                                     meta["poc"], ref_entries_l1=re1,
                                     union_pocs=meta["union"])
-            if native.available() and "part8" not in decisions:
-                data, _, mv4, refpoc4 = native.encode_md_slice_pb(
+            if (native.available() and "part8" not in decisions
+                    and not python_only):
+                data, sizes, mv4, refpoc4 = native.encode_md_slice_pb(
                     decisions, sh, writer.helper.ref_list, meta["poc"],
-                    False, sdh=sdh, ref_entries_l1=writer.helper.ref_list1,
+                    wpp, sdh=sdh, ref_entries_l1=writer.helper.ref_list1,
                     union_pocs=meta["union"],
                     sao_packed=native.pack_sao(decisions) if sao else None,
                     sao_cmax=(1 << (min(self.sps.bit_depth_luma, 10)
                                     - 5)) - 1,
                     max_merge=5 - sh.five_minus_max_num_merge_cand)
                 self.native_slices += 1
-                return [data], (mv4, refpoc4)
+                return split(data, sizes), (mv4, refpoc4), None
         if sao:
             from .engine.sao_writer import SaoWriter
             writer.sao_w = SaoWriter(decisions, bool(sh.sao_luma),
                                      bool(sh.sao_chroma),
                                      bit_depth=self.sps.bit_depth_luma)
-        bw = BitWriter()
-        cab = CabacEncoder(bw, ContextSet(2 - slice_type, sh.qp))
-        writer.cab = cab
-        n_y, n_x = self.sps.height_in_ctbs, self.sps.width_in_ctbs
+        lcu_bits = (np.zeros((n_y, n_x), np.int64) if self.lcu_rc
+                    else None)
+        substreams = []
+        saved_ctx = None
+        bw = cab = None
         for ctu_y in range(n_y):
+            if ctu_y == 0 or wpp:
+                # a new substream: the slice's first, or a WPP row's
+                ctx = (saved_ctx.copy() if saved_ctx is not None
+                       else ContextSet(2 - slice_type, sh.qp))
+                bw = BitWriter()
+                cab = CabacEncoder(bw, ctx)
+                writer.cab = cab
+                if hasattr(writer, "reset_qp_chain"):
+                    writer.reset_qp_chain()
             for ctu_x in range(n_x):
+                b0 = cab.bit_count
                 writer.write_ctu(ctu_y, ctu_x)
-                cab.encode_bin_trm(1 if (ctu_y, ctu_x) == (n_y - 1, n_x - 1)
+                if lcu_bits is not None:
+                    lcu_bits[ctu_y, ctu_x] = cab.bit_count - b0
+                if wpp and ctu_x == 1 and n_x > 1:
+                    saved_ctx = ctx.copy()
+                last = ctu_y == n_y - 1 and ctu_x == n_x - 1
+                row_end = ctu_x == n_x - 1
+                # end_of_slice_segment_flag, 1 at every row end with a
+                # segment a row; else end_of_subset_one_bit at a WPP row end
+                cab.encode_bin_trm(1 if last or (seg_mode and row_end)
                                    else 0)
-        cab.finish()
-        bw.byte_align_one()
+                if wpp and row_end and not last and not seg_mode:
+                    cab.encode_bin_trm(1)
+            if wpp or ctu_y == n_y - 1:
+                cab.finish()
+                bw.byte_align_one()
+                substreams.append(bw.get_bytes())
         motion = (writer.fs.mv, writer.fs.ref_poc) \
             if hasattr(writer, "fs") else None
-        return [bw.get_bytes()], motion
+        return substreams, motion, lcu_bits
 
     def finalize_frame(self, meta: dict) -> tuple[bytes, dict]:
         cfg = self.cfg
@@ -470,7 +619,8 @@ class Encoder:
         sh = self._slice_header(meta)
         decisions = self._pipeline.materialize(meta["dev"])
         self._last_decisions = decisions
-        substreams, motion = self._slice_data(meta, sh, decisions)
+        substreams, motion, lcu_bits = self._slice_data(meta, sh,
+                                                         decisions)
 
         # snapshot a reference frame's motion field for future TMVP
         if (self.inter_enabled and meta["is_ref"]
@@ -493,11 +643,29 @@ class Encoder:
                 if p not in keep:
                     del self._motion_fields[p]
 
-        sh.entry_point_offsets = [len(rbsp_to_ebsp(s))
-                                  for s in substreams[:-1]]
-        shw = BitWriter()
-        write_slice_header(sh, self.sps, self.pps, nal_type, shw)
-        slice_rbsp = shw.get_bytes() + b"".join(substreams)
+        if cfg.slices != "none" and len(substreams) > 1:
+            # --slices wpp: a slice segment NAL a substream (CTB row), the
+            # first independent, the rest dependent (spec 7.4.7.1)
+            import copy
+            slice_nals = []
+            for i, sdata in enumerate(substreams):
+                shi = copy.copy(sh)
+                shi.first_slice_in_pic = 1 if i == 0 else 0
+                shi.dependent_slice_segment = 0 if i == 0 else 1
+                shi.segment_address = i * self.sps.width_in_ctbs
+                shi.entry_point_offsets = []
+                w = BitWriter()
+                write_slice_header(shi, self.sps, self.pps, nal_type, w)
+                slice_nals.append(w.get_bytes() + sdata)
+        else:
+            # entry points count emulation-prevented (EBSP) bytes; each
+            # substream ends in a nonzero byte, so its emulation alone
+            # equals the whole slice's
+            sh.entry_point_offsets = [len(rbsp_to_ebsp(s))
+                                      for s in substreams[:-1]]
+            shw = BitWriter()
+            write_slice_header(sh, self.sps, self.pps, nal_type, shw)
+            slice_nals = [shw.get_bytes() + b"".join(substreams)]
 
         out = b""
         if cfg.aud_enable:
@@ -510,7 +678,8 @@ class Encoder:
         if meta["frame_num"] == 0 or (vp > 0
                                       and meta["frame_num"] % vp == 0):
             out += self.headers()
-        out += nal_unit(slice_rbsp, nal_type)
+        for s in slice_nals:
+            out += nal_unit(s, nal_type)
 
         rec = [decisions[k].cpu().numpy().astype(np.uint16)
                for k in ("rec_y", "rec_cb", "rec_cr")]
@@ -531,10 +700,19 @@ class Encoder:
         mv = float((1 << self.sps.bit_depth_luma) - 1)
         psnr = [99.0 if s_ == 0 else 10.0 * np.log10(mv ** 2 * n_ / s_)
                 for s_, n_ in zip(decisions["sse"], npix)]
+        if self._rc is not None:
+            self._rc.update(len(out) * 8, is_idr, layer=meta["layer"])
+            if lcu_bits is not None:
+                self._rc.update_lcu(lcu_bits)
+                if hasattr(self._rc, "update_oba"):
+                    self._rc.update_oba(lcu_bits,
+                                        (meta["y"], meta["cb"], meta["cr"]),
+                                        rec, layer=meta["layer"])
         info = {"poc": meta["poc"], "bytes": len(out), "qp": meta["qp"],
                 "recon": rec, "recon_out": crop, "psnr": psnr,
                 "n_waves": decisions.get("n_waves"),
-                "slice_type": meta["slice_type"]}
+                "slice_type": meta["slice_type"],
+                "substreams": len(substreams), "slices": len(slice_nals)}
         if cfg.stats_file_prefix:
             lam = 0.57 * 2.0 ** ((meta["qp"] - 12) / 3.0)
             with open(cfg.stats_file_prefix + "frames.txt", "a") as f:

@@ -9,7 +9,9 @@ NULL) to drain. Without a B pyramid the ring holds `owf` submitted
 frames whose device work runs while an earlier frame is entropy coded;
 with one (--gop 2/4/8/16) the pictures go through `Encoder.push_frame`,
 which returns nothing until a span is complete, and the drain codes the
-tail through `Encoder.flush`.
+tail through `Encoder.flush`. Under rate control a frame's QP is chosen
+when it enters the ring, before the bits of the frames still in it are
+known, as in the reference.
 
 `api.Encoder` stays the idiomatic interface underneath; every type here
 is plain (bytes, ndarray, dataclass). The encoder runs on `device`

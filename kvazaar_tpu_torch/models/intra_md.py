@@ -1,9 +1,10 @@
 """Quadtree (CTB 64) all-intra pipeline in PyTorch: CU leaves 64 down to
 NxN (four 4x4 PUs of an 8x8 CU).
 
-Device port of kvazaar_tpu/models/intra_md.py for 8-bit, constant-QP
-frames with any intra PU depth range (--pu-depth-intra 0-4) and the --rd
-ladder (0-3), optionally with deblocking, SAO, RDOQ and sign-data hiding.
+Device port of kvazaar_tpu/models/intra_md.py for 8-bit frames with any
+intra PU depth range (--pu-depth-intra 0-4) and the --rd ladder (0-3),
+optionally with deblocking, SAO, RDOQ and sign-data hiding, at one QP a
+frame or (delta_qp: VAQ, ROI, LCU rate control) one QP a CTB.
 One frame runs three stages on the pipeline's device:
 
 1. search: every aligned block of every allowed size evaluates all 35
@@ -24,6 +25,12 @@ One frame runs three stages on the pipeline's device:
    reconstructed planes directly; the fire step runs masked over every
    class row, so the only host sync is the periodic all-written exit
    test.
+
+Under delta QP the constants qpmap_y, qpmap_c and lammap carry the QP and
+lambda of each CTB: the search, the split DP and the reconstruction read
+them per block (RDOQ's context-init prices stay at the slice QP), and the
+final-QP chain (spec 8.6.1; qPY_PREV resets at each CTB row with wpp)
+gives each CTB's QP for deblocking and the writer (`qp_ctb`).
 
 Then deblocking, SAO, the decoded-picture checksum and the SSE. Results
 are bit-exact to the reference's decisions (float32 costs aside, which the
@@ -166,6 +173,13 @@ def rdoq_lambda(qp: int) -> float:
                  * np.float32(2.0 ** float(e)))
 
 
+def rdoq_lambda_t(qp: torch.Tensor) -> torch.Tensor:
+    """rdoq_lambda of each QP of an int tensor, float32, same shape."""
+    e = (qp.to(F32) - 12.0) * float(np.float32(1 / 3))
+    p = torch.pow(2.0, e.to(F64)).to(F32)
+    return p * float(np.float32(1.5) * np.float32(0.57))
+
+
 # exponents k at which the reference's floor(log2(2^k)) is k - 1 (its
 # compiled log2 is log(x) * float32(1 / ln 2), which lands below k there);
 # the Golomb price of RDOQ keeps the reference's value
@@ -209,8 +223,6 @@ class MdIntraPipeline:
                  trskip: bool = False, device="cuda") -> None:
         assert height % self.CTB == 0 and width % self.CTB == 0
         for bad, what, entry in (
-                (delta_qp, "delta QP", "the remaining intra variants"),
-                (wpp, "WPP", "the remaining intra variants"),
                 (scaling is not None, "scaling lists",
                  "the remaining intra variants"),
                 (lossless, "lossless", "the remaining intra variants"),
@@ -232,6 +244,10 @@ class MdIntraPipeline:
         self.sao = None if sao == "off" else sao
         self.rdoq = rdoq
         self.sign_hiding = sign_hiding
+        # delta_qp: per-CTB QP maps (VAQ, ROI, LCU rate control); wpp
+        # changes only the final-QP chain (qPY_PREV resets each CTB row)
+        self.delta_qp = delta_qp
+        self.wpp = wpp
         # leaf sizes of the depth range (0 = 64, 1 = 32, 2 = 16, 3 = 8,
         # 4 = NxN, kvazaar's --pu-depth-intra scale); at least one remains.
         # A 64 leaf is one CU whose TU tree splits once into four 32 TUs;
@@ -328,7 +344,20 @@ class MdIntraPipeline:
             invs[si][o] = np.arange(16)
         d["sdh_ord"], d["sdh_inv"] = ords, invs
         d.update(self._rdoq_consts(qp))
+        if self.delta_qp:
+            d.update(self.qp_map_arrays(np.full(
+                (self.h // self.CTB, self.w // self.CTB), qp, np.int32)))
         return d
+
+    @staticmethod
+    def qp_map_arrays(qm) -> dict:
+        """The delta-QP constants of a per-CTB QP map qm: luma and chroma
+        QPs and the float32 lambda of each CTB."""
+        qm = np.asarray(qm, np.int32)
+        return {"qpmap_y": qm,
+                "qpmap_c": np.vectorize(chroma_qp)(qm).astype(np.int32),
+                "lammap": np.asarray(0.57 * 2.0 ** ((qm - 12) / 3.0),
+                                     np.float32)}
 
     def _rdoq_consts(self, qp: int) -> dict:
         """Context-init fractional-bit prices of the batched RDOQ, at the
@@ -377,6 +406,11 @@ class MdIntraPipeline:
 
     def _arange(self, n: int) -> torch.Tensor:
         return torch.arange(n, device=self.device)
+
+    def _qtab(self, table) -> torch.Tensor:
+        """A (de)quantiser scale table as an int32 tensor."""
+        return torch.as_tensor(np.asarray(table, np.int32),
+                               device=self.device)
 
     def _planar(self, refs: torch.Tensor, n: int) -> torch.Tensor:
         """Planar prediction from (already filtered) refs."""
@@ -545,12 +579,13 @@ class MdIntraPipeline:
         return torch.where(cbf, self.dpc[i1] + self._rate_tu(levels, n),
                            self.dpc[i0])
 
-    def _transform_quant(self, resi, n: int, qp: int, *, is_luma: bool,
+    def _transform_quant(self, resi, n: int, qp, *, is_luma: bool,
                          tools: bool, scan_sel=None, dst: bool = False):
         """Forward transform + quant + dequant + inverse, exact integer
         arithmetic (the products run in float64, exact far beyond these
         magnitudes; CUDA has no int32 matmul). resi [L, n, n] ->
-        (levels, recon_resi) int32. tools: quantise with the configured
+        (levels, recon_resi) int32. qp: an int, or an int32 tensor [L]
+        of one QP a TU (delta QP). tools: quantise with the configured
         RDOQ / sign hiding (the reconstruction) instead of the plain
         deadzone rule (the search); scan_sel [L]: per-TU scan index that
         sign hiding follows (mode-dependent scans), None for diagonal;
@@ -564,8 +599,19 @@ class MdIntraPipeline:
         co = (t @ tmp.to(F64).transpose(1, 2)).to(I32)
         co = (co + (1 << (shift2 - 1))) >> shift2
         tshift = 7 - log2n
-        qbits = 14 + qp // 6 + tshift
-        scale = int(QUANT_SCALES[qp % 6])
+        if isinstance(qp, torch.Tensor):
+            # one QP a TU: int32 [L, 1, 1] factors, as the reference's
+            qb = qp.to(I32)[:, None, None]
+            qbits = 14 + qb // 6 + tshift
+            scale = self._qtab(QUANT_SCALES)[qb % 6]
+            dscale = self._qtab(INV_QUANT_SCALES)[qb % 6] << (qb // 6)
+            one = torch.ones_like(qbits)
+            qp = qb
+        else:
+            qbits = 14 + qp // 6 + tshift
+            scale = int(QUANT_SCALES[qp % 6])
+            dscale = int(INV_QUANT_SCALES[qp % 6]) << (qp // 6)
+            one = 1
         if tools and self.rdoq:
             levels = self._rdoq_levels(co, scale, qbits, qp, log2n, is_luma)
         else:
@@ -574,8 +620,7 @@ class MdIntraPipeline:
             levels = (torch.sign(co) * absq).to(I32)
         if tools and self.sign_hiding:
             err = co.abs() * scale - (levels.abs() << qbits)
-            levels = self._sdh_fix(levels, n, err, qbits, scan_sel)
-        dscale = int(INV_QUANT_SCALES[qp % 6]) << (qp // 6)
+            levels = self._sdh_fix(levels, n, err, one << qbits, scan_sel)
         dshift = log2n - 1
         deq = ((levels * dscale + (1 << (dshift - 1))) >> dshift) \
             .clamp(-32768, 32767)
@@ -614,7 +659,7 @@ class MdIntraPipeline:
             low = low | (rem == float(1 << k))
         return (exp - low.to(exp.dtype)).to(F32)
 
-    def _rdoq_levels(self, co, scale: int, qbits: int, qp: int, log2n: int,
+    def _rdoq_levels(self, co, scale, qbits, qp, log2n: int,
                      is_luma: bool = True):
         """Batched RDOQ (kvazaar_tpu MdIntraPipeline._rdoq_levels):
 
@@ -627,17 +672,28 @@ class MdIntraPipeline:
            in-span costs before it and pure distortion after it, and the
            all-zero option;
         3. the coded-sub-block zeroing pass.
-        co [L, n, n] int32 -> levels [L, n, n] int32."""
+        co [L, n, n] int32 -> levels [L, n, n] int32. scale, qbits and qp
+        are ints, or (one QP a TU) int32 tensors [L, 1, 1]: the lambda
+        then follows each TU's QP, the context-init prices stay the
+        slice's."""
         n = 1 << log2n
         L = co.shape[0]
         c = self.c
         absco = co.abs()
-        lf = (absco * scale + (1 << (qbits - 1))) >> qbits
-        lamb = rdoq_lambda(qp)
-        # pixel-SSE currency: scaled-domain err^2 / (scale^2 * 4^shift)
-        sf = np.float32(scale)
-        inv = float(np.float32(1.0) / (sf * sf * np.float32(
-            4.0 ** (15 - self.bd - log2n))))
+        four = np.float32(4.0 ** (15 - self.bd - log2n))
+        if isinstance(qp, torch.Tensor):
+            lf = (absco * scale + (torch.ones_like(qbits) << (qbits - 1))) \
+                >> qbits
+            lamb = rdoq_lambda_t(qp)
+            sf = scale.to(F32)
+            inv = 1.0 / (sf * sf * float(four))
+            lamb2 = lamb.reshape(L, 1)
+        else:
+            lf = (absco * scale + (1 << (qbits - 1))) >> qbits
+            lamb = lamb2 = rdoq_lambda(qp)
+            # pixel-SSE currency: scaled-domain err^2 / (scale^2 * 4^shift)
+            sf = np.float32(scale)
+            inv = float(np.float32(1.0) / (sf * sf * four))
 
         def ee(lv):
             """Squared scaled-domain error of level(s) lv, float32."""
@@ -725,8 +781,8 @@ class MdIntraPipeline:
         lastv = c[f"last{'p' if is_luma else 'c'}{log2n}"]
         # the compiled reference contracts lam * last into the sum except
         # at 32x32, where the product is formed on its own
-        tot = (prefA + ANZs + lamb * lastv[None, :] if log2n == 5
-               else _fma(prefA + ANZs, lamb, lastv[None, :])) + sufB
+        tot = (prefA + ANZs + lamb2 * lastv[None, :] if log2n == 5
+               else _fma(prefA + ANZs, lamb2, lastv[None, :])) + sufB
         tot = torch.where(gs(lf > 0), tot, big)
         p_star = torch.argmin(tot, dim=1)                  # first minimum
         tot_min = torch.gather(tot, 1, p_star[:, None])[:, 0]
@@ -743,8 +799,8 @@ class MdIntraPipeline:
             keep_cg, zero_cg = _seq_sum(torch.stack(
                 [cost_keep, Bs]).reshape(2, L, ncg, 16))
             ci = 1 + (0 if is_luma else 2)     # neighbour-coded csbf ctx
-            csbf0 = lamb * c["csbfp"][ci, 0]
-            csbf1 = lamb * c["csbfp"][ci, 1]
+            csbf0 = lamb2 * c["csbfp"][ci, 0]
+            csbf1 = lamb2 * c["csbfp"][ci, 1]
             gidx = torch.arange(ncg, device=self.device)[None, :]
             zmask = (zero_cg + csbf0 < keep_cg + csbf1) \
                 & (gidx != 0) & (gidx != (p_star >> 4)[:, None])
@@ -753,7 +809,7 @@ class MdIntraPipeline:
         lev = lev_s[:, invp].reshape(L, n, n)
         return (torch.sign(co) * lev).to(I32)
 
-    def _sdh_fix(self, levels, n: int, err, qbits: int, scan_sel=None):
+    def _sdh_fix(self, levels, n: int, err, q1, scan_sel=None):
         """Sign-data-hiding parity fix (spec 7.4.9.11): in each 4x4
         coefficient group whose nonzero span covers >= 4 scan positions the
         writer omits the first coefficient's sign and the decoder infers it
@@ -761,9 +817,12 @@ class MdIntraPipeline:
         the distortion-cheapest |level| +-1 among the nonzero coefficients:
         +1 where the quantiser rounded down hardest (max err), -1 where it
         rounded up hardest (min err; only on |level| >= 2, so scan positions
-        and the hidden sign never move). scan_sel [L]: per-TU in-CG scan
-        (0 diagonal, 1 horizontal, 2 vertical), None for diagonal."""
+        and the hidden sign never move). q1: 2^qbits, an int or a [L, 1, 1]
+        tensor (one QP a TU). scan_sel [L]: per-TU in-CG scan (0
+        diagonal, 1 horizontal, 2 vertical), None for diagonal."""
         L = levels.shape[0]
+        if isinstance(q1, torch.Tensor):
+            q1 = q1.reshape(L, 1)
         g = n // 4
         big = 1 << 30
         sel = (torch.zeros(L, dtype=torch.long, device=self.device)
@@ -788,13 +847,13 @@ class MdIntraPipeline:
         # +1 candidate: nonzero coeff with max rounding deficit
         e_up = torch.where(nz, e, -big)
         pos_up = torch.argmax(e_up, dim=-1)
-        cost_up = (1 << qbits) - 2 * torch.gather(e_up, 2,
+        cost_up = q1 - 2 * torch.gather(e_up, 2,
                                                   pos_up[..., None])[..., 0]
         # -1 candidate: |level| >= 2 coeff with max rounding excess
         ok_dn = s.abs() >= 2
         e_dn = torch.where(ok_dn, e, big)
         pos_dn = torch.argmin(e_dn, dim=-1)
-        cost_dn = (1 << qbits) + 2 * torch.gather(e_dn, 2,
+        cost_dn = q1 + 2 * torch.gather(e_dn, 2,
                                                   pos_dn[..., None])[..., 0]
         use_dn = ok_dn.any(dim=-1) & (cost_dn < cost_up)
         pos = torch.where(use_dn, pos_dn, pos_up)
@@ -816,11 +875,25 @@ class MdIntraPipeline:
     # stage 1+2: mode search and partition DP
     # ------------------------------------------------------------------
 
+    def _ctb_vec(self, key: str, n: int) -> torch.Tensor:
+        """A per-CTB constant map (qpmap_y, qpmap_c, lammap) as one value
+        per aligned n-block, blocks in raster order [B]."""
+        k = self.CTB // n
+        return rep2(self.c[key], k).reshape(-1)
+
+    def _qp_lam_for(self, n: int):
+        """(luma QP, chroma QP, lambda) of every aligned n-block: the
+        frame's scalars, or [B] tensors under delta QP."""
+        if not self.delta_qp:
+            return self.qp_y, self.qp_c, self.lam
+        return (self._ctb_vec("qpmap_y", n), self._ctb_vec("qpmap_c", n),
+                self._ctb_vec("lammap", n))
+
     def _leaf_rd(self, src_y, src_cb, src_cr, n: int):
         """Best mode + RD cost for every aligned n-block.
         Returns (modes [B] int32, cost [B] float32)."""
         g, f = self._gf(n, True)
-        lam = self.lam
+        qp_y, qp_c, lam = self._qp_lam_for(n)
         refs = self._src_refs(src_y, n)
         preds = self._preds_full(refs, g, f, n, True)
         blocks = self._blocks(src_y, n)
@@ -837,44 +910,49 @@ class MdIntraPipeline:
             predk = torch.gather(preds, 1, cand[:, :, None]
                                  .expand(-1, -1, n * n)).reshape(B, k, n, n)
             resik = (blocks[:, None] - predk).reshape(B * k, n, n)
-            lvk, rk2 = self._transform_quant(resik, n, self.qp_y,
-                                             is_luma=True, tools=False)
+            qpk, lamk = qp_y, lam
+            if self.delta_qp:
+                qpk = qp_y.repeat_interleave(k)
+                lamk = lam.repeat_interleave(k)
+            lvk, rk2 = self._transform_quant(resik, n, qpk, is_luma=True,
+                                             tools=False)
             dk = self._sqsum(resik - rk2)
             rtk = self._tu_rate_y(lvk, n) + self.mode_cost[cand.reshape(-1)]
             # the final leaf cost's metric, noise factor included
-            ck = (dk * (1 + self.REF_NOISE_K / n) + lam * rtk).reshape(B, k)
+            ck = (dk * (1 + self.REF_NOISE_K / n) + lamk * rtk).reshape(B, k)
             sel = torch.argmin(ck, dim=1)                  # first minimum
             modes = torch.gather(cand, 1, sel[:, None])[:, 0].to(I32)
         pred = torch.gather(preds, 1, modes.long()[:, None, None]
                             .expand(-1, 1, n * n))[:, 0].reshape(-1, n, n)
         resi = blocks - pred
-        levels, r2 = self._transform_quant(resi, n, self.qp_y, is_luma=True,
+        levels, r2 = self._transform_quant(resi, n, qp_y, is_luma=True,
                                            tools=False)
         dist = self._sqsum(resi - r2)
         rate = self._tu_rate_y(levels, n)
         ccost = self._add_chroma_costs(torch.zeros_like(dist), src_cb,
-                                       src_cr, modes, n // 2)
+                                       src_cr, modes, n // 2, qp_c, lam)
         cost = dist * (1 + self.REF_NOISE_K / n) \
             + lam * (rate + self.mode_cost[modes.long()]
                      + self.dpc[self.DPC_CHROMA_DM]) + ccost
         return modes, cost
 
-    def _add_chroma_costs(self, acc, src_cb, src_cr, modes, nc: int,
-                          depth1: bool = False):
+    def _add_chroma_costs(self, acc, src_cb, src_cr, modes, nc: int, qp_c,
+                          lam, depth1: bool = False):
         """acc plus, plane by plane (Cb, then Cr), the RD cost of each
         block's nc x nc chroma TU predicted from source references with
         the derived (DM) mode `modes`: its distortion with the noise
-        factor, plus lambda times its rate at trafo depth 0 or 1."""
+        factor, plus lambda times its rate at trafo depth 0 or 1. qp_c
+        and lam: scalars, or one a block under delta QP."""
         gc, _ = self._gf(nc, False)
         for plane in (src_cb, src_cr):
             cpred = self._pred_one(self._src_refs(plane, nc), modes, gc, gc,
                                    nc, False)
             cresi = self._blocks(plane, nc) - cpred.reshape(-1, nc, nc)
-            clev, cr2 = self._transform_quant(cresi, nc, self.qp_c,
+            clev, cr2 = self._transform_quant(cresi, nc, qp_c,
                                               is_luma=False, tools=False)
             acc = acc + self._sqsum(cresi - cr2) \
                 * (1 + self.REF_NOISE_K / nc) \
-                + self.lam * self._tu_rate_c(clev, nc, depth1=depth1)
+                + lam * self._tu_rate_c(clev, nc, depth1=depth1)
         return acc
 
     def _leaf_rd64(self, src_y, src_cb, src_cr):
@@ -882,12 +960,15 @@ class MdIntraPipeline:
         32x32 quarters) for four 32x32 TUs (the TU tree splits once, spec
         7.3.8.8) and four 16x16 chroma TUs a plane, rates at trafo depth 1.
         Returns (modes [B64] int32, cost [B64] float32)."""
-        lam = self.lam
+        qp_y, qp_c, lam = self._qp_lam_for(64)
         n = 32
         r64, c64 = self.h // 64, self.w // 64
 
         def to_children(v64):
             return rep2(v64.reshape(r64, c64), 2).reshape(-1)
+        qy, qc, lam_ch = qp_y, qp_c, lam
+        if self.delta_qp:
+            qy, qc, lam_ch = (to_children(v) for v in (qp_y, qp_c, lam))
 
         g, f = self._gf(n, True)
         refs = self._src_refs(src_y, n)
@@ -900,13 +981,13 @@ class MdIntraPipeline:
         pred = torch.gather(preds, 1, mch.long()[:, None, None]
                             .expand(-1, 1, n * n))[:, 0].reshape(-1, n, n)
         resi = blocks - pred
-        levels, r2 = self._transform_quant(resi, n, self.qp_y, is_luma=True,
+        levels, r2 = self._transform_quant(resi, n, qy, is_luma=True,
                                            tools=False)
         dist = self._sqsum(resi - r2)
         rate = self._tu_rate_y(levels, n, depth1=True)
         child = self._add_chroma_costs(
-            dist * (1 + self.REF_NOISE_K / n) + lam * rate, src_cb, src_cr,
-            mch, 16, depth1=True)
+            dist * (1 + self.REF_NOISE_K / n) + lam_ch * rate, src_cb,
+            src_cr, mch, 16, qc, lam_ch, depth1=True)
         cost64 = child.reshape(r64, 2, c64, 2).sum(dim=(1, 3)).reshape(-1) \
             + lam * (self.mode_cost[m64.long()]
                      + self.dpc[self.DPC_CHROMA_DM])
@@ -937,7 +1018,10 @@ class MdIntraPipeline:
         modes and 4x4 DST TUs at trafo depth 1, plus one 4x4 chroma TU a
         plane on PU0's mode. Returns (modes4 [B4] int32 per 4x4 block,
         cost [B8] float32 per 8x8 cell)."""
-        lam = self.lam
+        _, qp_c, lam = self._qp_lam_for(8)
+        qy, lam4 = self.qp_y, self.lam
+        if self.delta_qp:
+            qy, lam4 = self._ctb_vec("qpmap_y", 4), self._ctb_vec("lammap", 4)
         r4n, c4n = self.h // 4, self.w // 4
         g, f = self._gf(4, True)
         refs = self._src_refs(src_y, 4)
@@ -948,42 +1032,47 @@ class MdIntraPipeline:
         pred = torch.gather(preds, 1, m4.long()[:, None, None]
                             .expand(-1, 1, 16))[:, 0].reshape(-1, 4, 4)
         resi = blocks - pred
-        levels, r2 = self._transform_quant(resi, 4, self.qp_y, is_luma=True,
+        levels, r2 = self._transform_quant(resi, 4, qy, is_luma=True,
                                            tools=False, dst=True)
         dist = self._sqsum(resi - r2)
         rate = self._tu_rate_y(levels, 4, depth1=True)
         child = (dist * (1 + self.REF_NOISE_K / 4)
-                 + lam * (rate + self.mode_cost[m4.long()])) \
+                 + lam4 * (rate + self.mode_cost[m4.long()])) \
             .reshape(r4n // 2, 2, c4n // 2, 2).sum(dim=(1, 3)).reshape(-1)
         m0 = m4.reshape(r4n, c4n)[::2, ::2].reshape(-1)
         return m4, self._add_chroma_costs(
             child + lam * self.dpc[self.DPC_CHROMA_DM], src_cb, src_cr, m0,
-            4)
+            4, qp_c, lam)
 
-    def _split_dp(self, cost8, leaf16, leaf32):
+    def _split_dp(self, cost8, leaf16, leaf32, lam16=None, lam32=None):
         """The 8 -> 16 -> 32 steps of the bottom-up split DP over the cost
         of each 8x8 CU cost8 [R8,C8] and the leaf costs leaf16 and leaf32.
         The intra depth range forces or forbids the splits (in the inter
-        quadtree too, as in the reference). Returns split16, split32 and
-        best32, the cost of each 32x32 region's choice."""
+        quadtree too, as in the reference). lam16 / lam32: the lambda of
+        each 16 / 32 region under delta QP (the frame's by default).
+        Returns split16, split32 and best32, the cost of each 32x32
+        region's choice."""
         allow = self.allow
-        lam = self.lam
+        lam16 = self.lam if lam16 is None else lam16
+        lam32 = self.lam if lam32 is None else lam32
         sp0 = self.dpc[self.DPC_SPLIT0]
         sp1 = self.dpc[self.DPC_SPLIT1]
         sum8 = sum4(cost8)
-        split16 = sum8 + lam * sp1 < leaf16 + lam * sp0
+        split16 = sum8 + lam16 * sp1 < leaf16 + lam16 * sp0
         if not allow[8]:
             split16 = torch.zeros_like(split16)
         if not allow[16]:
             split16 = torch.ones_like(split16)
-        best16 = torch.where(split16, sum8 + lam * sp1, leaf16 + lam * sp0)
+        best16 = torch.where(split16, sum8 + lam16 * sp1,
+                             leaf16 + lam16 * sp0)
         sum16 = sum4(best16)
-        split32 = sum16 + lam * sp1 < leaf32 + lam * sp0
+        split32 = sum16 + lam32 * sp1 < leaf32 + lam32 * sp0
         if not allow[32]:
             split32 = torch.ones_like(split32)
         elif not (allow[16] or allow[8]):
             split32 = torch.zeros_like(split32)
-        best32 = torch.where(split32, sum16 + lam * sp1, leaf32 + lam * sp0)
+        best32 = torch.where(split32, sum16 + lam32 * sp1,
+                             leaf32 + lam32 * sp0)
         return split16, split32, best32
 
     def _partition(self, src_y, src_cb, src_cr):
@@ -1009,15 +1098,21 @@ class MdIntraPipeline:
         m32, c32c = self._leaf_rd(src_y, src_cb, src_cr, 32)
         r16, c16n = self.h // 16, self.w // 16
         r32, c32n = self.h // 32, self.w // 32
+        r64, c64n = self.h // 64, self.w // 64
+        # the split DP's lambdas: the CTB's under delta QP (the 8x8
+        # part_mode prices above stay at the frame's, as the reference's)
+        lam16 = lam32 = lam64 = lam
+        if self.delta_qp:
+            lam16, lam32, lam64 = (rep2(self.c["lammap"], self.CTB // n)
+                                   for n in (16, 32, 64))
         split16, split32, best32 = self._split_dp(
             c8c.reshape(self.r8, self.c8), c16c.reshape(r16, c16n),
-            c32c.reshape(r32, c32n))
+            c32c.reshape(r32, c32n), lam16, lam32)
         split64 = None
         if allow[64]:
             m64, c64c = self._leaf_rd64(src_y, src_cb, src_cr)
-            r64, c64n = self.h // 64, self.w // 64
-            split64 = sum4(best32) + lam * self.dpc[self.DPC_SPLIT1] \
-                < c64c.reshape(r64, c64n) + lam * self.dpc[self.DPC_SPLIT0]
+            split64 = sum4(best32) + lam64 * self.dpc[self.DPC_SPLIT1] \
+                < c64c.reshape(r64, c64n) + lam64 * self.dpc[self.DPC_SPLIT0]
             if not (allow[32] or allow[16] or allow[8]):
                 split64 = torch.zeros_like(split64)
         e32 = rep2(split32, 2)
@@ -1170,11 +1265,10 @@ class MdIntraPipeline:
         return torch.cat([left, corner[:, None], top, pad], dim=1)
 
     def _tu_apply(self, plane, srcb, n: int, cell_px: int, y0, x0,
-                  has_left, has_top, nbl, ntr, modes, qp: int,
-                  is_luma: bool):
+                  has_left, has_top, nbl, ntr, modes, qp, is_luma: bool):
         """Predict, transform and reconstruct one TU per slot from the
-        reconstructed plane (padded, +1 offset). Returns (recon, levels)
-        [L, n, n]."""
+        reconstructed plane (padded, +1 offset); qp: an int, or one a
+        slot under delta QP. Returns (recon, levels) [L, n, n]."""
         ar = self._arange(2 * n)
         left_raw = plane[1 + y0[:, None] + ar[None, :], x0[:, None]]
         top_raw = plane[y0[:, None], 1 + x0[:, None] + ar[None, :]]
@@ -1220,9 +1314,12 @@ class MdIntraPipeline:
         modes = pre["modes"][r, c]
         bidx = r * cs + c
         y0, x0 = r * s, c * s
+        qp_y, qp_c = self.qp_y, self.qp_c
+        if "qpy" in pre:
+            qp_y, qp_c = pre["qpy"][r, c], pre["qpc"][r, c]
         rb, lb = self._tu_apply(luma[0], pre["by"][bidx], s, 8, y0, x0,
-                                has_left, has_top, nbl, ntr, modes,
-                                self.qp_y, True)
+                                has_left, has_top, nbl, ntr, modes, qp_y,
+                                True)
         nxn = None
         if "nxn" in pre:
             nxn = valid & pre["nxn"][r, c]
@@ -1233,17 +1330,17 @@ class MdIntraPipeline:
         self._put(luma[1], y0, x0, s, lb, valid_2n)
         if nxn is not None:
             self._nxn_apply(luma, pre["by"][bidx], y0, x0, has_left,
-                            has_top, nbl, ntr, pre["modes4"][r, c], nxn)
+                            has_top, nbl, ntr, pre["modes4"][r, c], nxn, qp_y)
         sc = s // 2
         for i, key in enumerate(("bcb", "bcr")):
             rb, lb = self._tu_apply(chroma[i], pre[key][bidx], sc, 4,
                                     r * sc, c * sc, has_left, has_top, nbl,
-                                    ntr, modes, self.qp_c, False)
+                                    ntr, modes, qp_c, False)
             self._put(chroma[i], r * sc, c * sc, sc, rb, valid)
             self._put(chroma[2 + i], r * sc, c * sc, sc, lb, valid)
 
     def _nxn_apply(self, luma, src8, y0, x0, has_left, has_top, nbl, ntr,
-                   modes4, nxn) -> None:
+                   modes4, nxn, qp_y) -> None:
         """Reconstruct the four 4x4 luma TUs of the NxN cells nxn [L] of
         the fired 8-class slots into the planes, one after another in z
         order: each predicts from the plane, its neighbours in the cell
@@ -1251,7 +1348,7 @@ class MdIntraPipeline:
         8.4.4.2.2): sub-TU 1 has no below-left and the cell's first
         top-right cell, sub-TU 2 the cell's first below-left cell and
         sub-TU 1 as top-right, sub-TU 3 neither. modes4 [L, 4] in z
-        order."""
+        order; qp_y: the slots' luma QP (an int, or [L])."""
         one = torch.ones_like(has_left)
         zero = torch.zeros_like(nbl)
         nb1, nt1 = nbl.clamp(max=1), ntr.clamp(max=1)
@@ -1264,7 +1361,7 @@ class MdIntraPipeline:
             hl, ht, nb, nt = avail[i]
             rb, lb = self._tu_apply(luma[0], src8[:, dy:dy + 4, dx:dx + 4],
                                     4, 4, y0 + dy, x0 + dx, hl, ht, nb, nt,
-                                    modes4[:, i], self.qp_y, True)
+                                    modes4[:, i], qp_y, True)
             self._put(luma[0], y0 + dy, x0 + dx, 4, rb, nxn)
             self._put(luma[1], y0 + dy, x0 + dx, 4, lb, nxn)
 
@@ -1310,6 +1407,12 @@ class MdIntraPipeline:
                        "bcr": self._blocks(src_cr, s // 2),
                        "modes": mode_map8[::k, ::k],
                        "cols": self._arange(cs)}
+            if self.delta_qp:
+                # the QPs of each class position's CTB
+                rr = self._arange(rs) * s // self.CTB
+                cc = self._arange(cs) * s // self.CTB
+                for key, m in (("qpy", "qpmap_y"), ("qpc", "qpmap_c")):
+                    pres[s][key] = self.c[m][rr[:, None], cc[None, :]]
             if s == 8 and nxn8 is not None:
                 for key in ("need_l", "need_t", "need_bl", "need_tr"):
                     st[key] = st[key] | nxn8
@@ -1377,11 +1480,39 @@ class MdIntraPipeline:
                 chroma[2, 1:1 + h // 2, 1:1 + w // 2],
                 chroma[3, 1:1 + h // 2, 1:1 + w // 2])
 
-    def _deblock(self, ry, rcb, rcr, bs_ver, bs_hor):
+    def _final_qp(self, lvl_y, lvl_cb, lvl_cr) -> torch.Tensor:
+        """Final per-CTB QP (spec 8.6.1 through the qPY_PREV chain): a CTB
+        that codes no coefficient never codes its delta, so its QP is the
+        predecessor's in coding order (the slice QP at the frame start,
+        and with wpp at every CTB row start). Returns int32 [rows, cols]."""
+        rc, cc = self.h // self.CTB, self.w // self.CTB
+        n, nc2 = self.CTB, self.CTB // 2
+
+        def coded(lv, m):
+            return (lv.reshape(rc, m, cc, m) != 0).any(dim=3).any(dim=1)
+        cbf = coded(lvl_y, n) | coded(lvl_cb, nc2) | coded(lvl_cr, nc2)
+        qpm = self.c["qpmap_y"]
+        if self.wpp:
+            pos = torch.where(cbf, self._arange(cc)[None, :], -1)
+            last = torch.cummax(pos, dim=1).values
+            fq = torch.gather(qpm, 1, last.clamp(min=0))
+        else:
+            pos = torch.where(cbf.reshape(-1), self._arange(rc * cc), -1)
+            last = torch.cummax(pos, dim=0).values
+            fq = qpm.reshape(-1)[last.clamp(min=0)]
+            last = last.reshape(rc, cc)
+            fq = fq.reshape(rc, cc)
+        return torch.where(last >= 0, fq, self.qp_y).to(I32)
+
+    def _deblock(self, ry, rcb, rcr, bs_ver, bs_hor, fq=None):
+        """Deblocking at the frame's QP, or with the final per-CTB QPs fq
+        (delta QP) every edge at its two sides' rounded mean."""
         from ..ops.deblock_torch import deblock_frame_torch
+        qp4 = None if fq is None else rep2(fq, self.CTB // 4)
         return deblock_frame_torch(ry, rcb, rcr, bs_ver, bs_hor, self.qp_y,
                                    self.qp_c, self.qp_c, self.deblock_beta,
-                                   self.deblock_tc, bit_depth=self.bd)
+                                   self.deblock_tc, bit_depth=self.bd,
+                                   qp4=qp4)
 
     def _sao(self, src_y, src_cb, src_cr, ry, rcb, rcr):
         """SAO search and filter of the deblocked planes (luma per CTB,
@@ -1441,14 +1572,18 @@ class MdIntraPipeline:
             mode_map4=mode_map4)
         ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(luma,
                                                                   chroma)
+        fq = (self._final_qp(lvl_y, lvl_cb, lvl_cr) if self.delta_qp
+              else None)
         if self.deblock:
             ry, rcb, rcr = self._deblock(ry, rcb, rcr,
-                                         *self._edge_maps(size_map8))
+                                         *self._edge_maps(size_map8), fq)
         out = self._frame_outputs(ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr,
                                   src_y, src_cb, src_cr)
         out.update(size_map8=size_map8.to(torch.int8),
                    mode_map8=mode_map8.to(torch.int8),
                    mode_map4=mode_map4.to(torch.int8), n_waves=n_waves)
+        if fq is not None:
+            out["qp_ctb"] = fq.to(torch.int8)
         return out
 
     # ------------------------------------------------------------------
@@ -1461,11 +1596,19 @@ class MdIntraPipeline:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @torch.inference_mode()
-    def submit(self, src_y, src_cb, src_cr, qp: int | None = None) -> dict:
+    def submit(self, src_y, src_cb, src_cr, qp: int | None = None,
+               qp_map=None) -> dict:
         """Run the frame's device work; the result dict holds device
         tensors for materialize. The host waits only for the wavefront's
-        periodic exit test."""
-        self.set_consts(self._consts_for(qp))
+        periodic exit test. qp_map: the QP of each CTB (delta QP)."""
+        consts = self._consts_for(qp)
+        if qp_map is not None:
+            if not self.delta_qp:
+                raise ValueError("qp_map needs a delta_qp pipeline")
+            consts = dict(consts)
+            consts.update(consts_from_numpy(self.qp_map_arrays(qp_map),
+                                            self.device))
+        self.set_consts(consts)
         return self._full_impl(self._to_dev(src_y), self._to_dev(src_cb),
                                self._to_dev(src_cr))
 

@@ -4,13 +4,20 @@ Matches ops/deblock.py (the NumPy oracle) bit-exactly: one pass filters
 every 8-aligned vertical edge of the picture in parallel (edges are 8
 apart, the filter reach is 4), the horizontal pass runs on the transposed
 result. BS == 0 segments fall out naturally (tc == 0 makes every clip a
-no-op). Constant QP per picture (no delta-QP on this path).
+no-op). One QP a picture, or (delta QP) a QP a 4x4 block, from which each
+edge segment takes the rounded mean of its two sides (spec 8.7.2.5.3).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .deblock import BETA_TABLE, TC_TABLE
+
+# chroma QP mapping (spec table 8-10, 8-bit), indexed by QpY + offset
+_CQP = np.arange(58)
+_CQP[30:44] = [29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37]
+_CQP[44:] = _CQP[44:] - 6
 
 
 def _clip3(lo, hi, v):
@@ -19,10 +26,11 @@ def _clip3(lo, hi, v):
         else v.clamp(lo, hi)
 
 
-def _luma_pass_ver(rec, bs_ver, qp: int, beta_off: int, tc_off: int,
+def _luma_pass_ver(rec, bs_ver, qp, beta_off: int, tc_off: int,
                    bit_depth: int):
     """Filter all 8-aligned vertical luma edges. rec [H, W] int32;
-    bs_ver [H/4, W/8] int (0/1/2). Returns the filtered picture."""
+    bs_ver [H/4, W/8] int (0/1/2); qp an int or a per-segment [H/4, E]
+    map. Returns the filtered picture."""
     h, w = rec.shape
     n_e = w // 8 - 1
     if n_e <= 0:
@@ -35,8 +43,12 @@ def _luma_pass_ver(rec, bs_ver, qp: int, beta_off: int, tc_off: int,
     p3, p2, p1, p0 = (win[..., k] for k in range(4))
     q0, q1, q2, q3 = (win[..., 4 + k] for k in range(4))
 
-    beta_idx = min(max(qp + (beta_off << 1), 0), 51)
-    beta = int(BETA_TABLE[beta_idx]) << (bit_depth - 8)
+    if isinstance(qp, torch.Tensor):
+        bt = torch.as_tensor(BETA_TABLE, dtype=torch.int32, device=dev)
+        beta = bt[(qp + (beta_off << 1)).clamp(0, 51)] << (bit_depth - 8)
+    else:
+        beta_idx = min(max(qp + (beta_off << 1), 0), 51)
+        beta = int(BETA_TABLE[beta_idx]) << (bit_depth - 8)
     bs = bs_ver[:, 1:n_e + 1]
     tc_idx = (qp + 2 * (bs - 1) + (tc_off << 1)).clamp(0, 53)
     tct = torch.as_tensor(TC_TABLE, dtype=torch.int32, device=dev)
@@ -107,10 +119,10 @@ def _luma_pass_ver(rec, bs_ver, qp: int, beta_off: int, tc_off: int,
     return out
 
 
-def _chroma_pass_ver(rec, bs2_rows, qp_c: int, tc_off: int,
-                     bit_depth: int):
+def _chroma_pass_ver(rec, bs2_rows, qp_c, tc_off: int, bit_depth: int):
     """Filter all 8-aligned vertical chroma edges. rec [Hc, Wc];
-    bs2_rows [Hc/2, Wc/8] bool: BS == 2 per 2-row chroma segment."""
+    bs2_rows [Hc/2, Wc/8] bool: BS == 2 per 2-row chroma segment; qp_c an
+    int or a per-segment [Hc/2, E] map."""
     hc, wc = rec.shape
     n_e = wc // 8 - 1
     if n_e <= 0:
@@ -121,10 +133,15 @@ def _chroma_pass_ver(rec, bs2_rows, qp_c: int, tc_off: int,
     colwin = xe[:, None] - 2 + torch.arange(4, device=dev)[None, :]
     win = rec[:, colwin].reshape(s, 2, n_e, 4)
     p1, p0, q0, q1 = (win[..., k] for k in range(4))
-    tc_idx = min(max(qp_c + 2 + (tc_off << 1), 0), 53)
-    tc = int(TC_TABLE[tc_idx]) << (bit_depth - 8)
+    if isinstance(qp_c, torch.Tensor):
+        tct = torch.as_tensor(TC_TABLE, dtype=torch.int32, device=dev)
+        tc = (tct[(qp_c + 2 + (tc_off << 1)).clamp(0, 53)]
+              << (bit_depth - 8))[:, None, :]
+    else:
+        tc_idx = min(max(qp_c + 2 + (tc_off << 1), 0), 53)
+        tc = int(TC_TABLE[tc_idx]) << (bit_depth - 8)
     on = bs2_rows[:, 1:n_e + 1][:, None, :]
-    delta = ((((q0 - p0) << 2) + p1 - q1 + 4) >> 3).clamp(-tc, tc)
+    delta = _clip3(-tc, tc, (((q0 - p0) << 2) + p1 - q1 + 4) >> 3)
     delta = torch.where(on, delta, 0)
     max_val = (1 << bit_depth) - 1
     out_p0 = (p0 + delta).clamp(0, max_val)
@@ -137,27 +154,52 @@ def _chroma_pass_ver(rec, bs2_rows, qp_c: int, tc_off: int,
     return out
 
 
+def _edge_qp_ver(qp4, n_e: int):
+    """Per-segment luma QP of the vertical edges [H/4, E] from the per-4x4
+    QP map: (QpQ + QpP + 1) >> 1."""
+    xe4 = (torch.arange(n_e, device=qp4.device) + 1) * 2
+    return (qp4[:, xe4] + qp4[:, xe4 - 1] + 1) >> 1
+
+
 def deblock_frame_torch(rec_y, rec_cb, rec_cr, bs_ver, bs_hor, qp: int,
                         qp_cb: int, qp_cr: int, beta_off: int = 0,
-                        tc_off: int = 0, bit_depth: int = 8):
+                        tc_off: int = 0, bit_depth: int = 8, qp4=None):
     """Device deblock of a 4:2:0 picture. bs_ver [H/4, W/8] / bs_hor
-    [H/8, W/4] int 0/1/2 on the luma grid. Returns int32 planes."""
+    [H/8, W/4] int 0/1/2 on the luma grid. qp4: the luma QP of each 4x4
+    block [H/4, W/4] (delta QP); every edge then filters at its two
+    sides' rounded mean, both chroma QPs from that through the chroma
+    table (the PPS carries no chroma QP offsets), and qp, qp_cb, qp_cr
+    are unused. Returns int32 planes."""
+    h, w = rec_y.shape
+    if qp4 is not None:
+        qp4 = qp4.to(torch.int32)
+        qp_v = _edge_qp_ver(qp4, w // 8 - 1)
+        qp_h = _edge_qp_ver(qp4.t(), h // 8 - 1)
+        ctab = torch.as_tensor(_CQP, dtype=torch.int32, device=qp4.device)
+        # chroma edges sit at the 16-aligned luma edges (odd edge index),
+        # their 2-row segments on the luma 4-row segments (4:2:0)
+        qcb_v = qcr_v = ctab[qp_v[:, 1::2].clamp(0, 57)]
+        qcb_h = qcr_h = ctab[qp_h[:, 1::2].clamp(0, 57)]
+    else:
+        qp_v = qp_h = qp
+        qcb_v = qcb_h = qp_cb
+        qcr_v = qcr_h = qp_cr
     rec_y = rec_y.to(torch.int32)
     bs_ver = bs_ver.to(torch.int32)
     bs_hor = bs_hor.to(torch.int32)
-    rec_y = _luma_pass_ver(rec_y, bs_ver, qp, beta_off, tc_off, bit_depth)
-    rec_y = _luma_pass_ver(rec_y.t(), bs_hor.t(), qp, beta_off, tc_off,
+    rec_y = _luma_pass_ver(rec_y, bs_ver, qp_v, beta_off, tc_off, bit_depth)
+    rec_y = _luma_pass_ver(rec_y.t(), bs_hor.t(), qp_h, beta_off, tc_off,
                            bit_depth).t()
     # chroma: BS == 2 at 16-aligned luma edges only; the chroma 2-row
     # segment grid coincides with the luma 4-row segment grid (4:2:0)
     bsv_c = (bs_ver == 2)[:, ::2]
     bsh_c = (bs_hor == 2)[::2, :].t()
-    out_cb = _chroma_pass_ver(rec_cb.to(torch.int32), bsv_c, qp_cb, tc_off,
+    out_cb = _chroma_pass_ver(rec_cb.to(torch.int32), bsv_c, qcb_v, tc_off,
                               bit_depth)
-    out_cr = _chroma_pass_ver(rec_cr.to(torch.int32), bsv_c, qp_cr, tc_off,
+    out_cr = _chroma_pass_ver(rec_cr.to(torch.int32), bsv_c, qcr_v, tc_off,
                               bit_depth)
-    out_cb = _chroma_pass_ver(out_cb.t(), bsh_c, qp_cb, tc_off,
+    out_cb = _chroma_pass_ver(out_cb.t(), bsh_c, qcb_h, tc_off,
                               bit_depth).t()
-    out_cr = _chroma_pass_ver(out_cr.t(), bsh_c, qp_cr, tc_off,
+    out_cr = _chroma_pass_ver(out_cr.t(), bsh_c, qcr_h, tc_off,
                               bit_depth).t()
     return rec_y.contiguous(), out_cb.contiguous(), out_cr.contiguous()

@@ -10,9 +10,10 @@ t0=$(date +%s)
 echo smoke_rc=$? wall_s=$(( $(date +%s) - t0 ))
 (cd _chipwork/tree && python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py) > chiprun_out/pr10/call3_cuda_tests.log 2>&1
 echo tests_rc=$?
-mkdir -p /tmp/alone && cp _chipwork/tree/chip_smoke.py /tmp/alone/
-(cd /tmp/alone && python3 chip_smoke.py) > chiprun_out/pr10/call3_alone.log 2>&1
+alone=$(mktemp -d) && cp _chipwork/tree/chip_smoke.py "$alone"/
+(cd "$alone" && python3 chip_smoke.py) > chiprun_out/pr10/call3_alone.log 2>&1
 echo alone_rc=$?
+rm -rf "$alone"
 tail -3 chiprun_out/pr10/call3_alone.log
 tail -2 chiprun_out/pr10/call3_cuda_tests.log
 grep -E "^smoke:|decode|intra leaves|preset .* parity:|FAIL" chiprun_out/pr10/call3_chip_smoke.log

@@ -10,8 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (GOP8, INTRA_LEAVES, LOWDELAY, OPEN_GOP,  # noqa
-                        P_SMP, TOOL_LDB, TOOL_ROW, compare_devices,
+from chip_smoke import (GOP8, GOP_OBA, INTRA_LEAVES, LCU_OBA,  # noqa
+                        LOWDELAY, OPEN_GOP, P_SMP, SMOKE_ROI, TOOL_LDB,
+                        TOOL_ROW, VAQ_ROI, WPP_RC, compare_devices,
                         kernel_errors, kernel_inputs, leaf_frames,
                         mixed_frames, split_motion_frames, tie_inputs,
                         tie_planes)
@@ -211,3 +212,27 @@ def test_cuda_intra_leaves_equal_cpu():
                for r in rows), [r["sizes"] for r in rows]
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wpp_rc", "lcu_oba", "vaq_roi",
+                                  "gop_oba"])
+def test_cuda_wpp_rc_delta_qp_equal_cpu(name, tmp_path):
+    """WPP with lambda rate control (IDR + 3 B), all-intra OBA rate
+    control with WPP (a QP a CTB), VAQ with a ROI map and the tool row,
+    and the B pyramid with WPP slices and OBA (6 frames) give the CPU
+    path's streams, maps and CTB QPs on the GPU at 192x128 (3x2 CTBs),
+    and decode hash-exactly."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    roi = tmp_path / "roi.txt"
+    roi.write_text(SMOKE_ROI)
+    cfg, n = {"wpp_rc": (dict(WPP_RC, target_bitrate=600_000), 4),
+              "lcu_oba": (dict(LCU_OBA, target_bitrate=600_000), 2),
+              "vaq_roi": (dict(VAQ_ROI, roi_file=str(roi)), 2),
+              "gop_oba": (dict(GOP_OBA, target_bitrate=600_000), 6)}[name]
+    stream, rows = compare_devices(mixed_frames(n, 192, 128), 192, 128,
+                                   **cfg)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == n and all(p.hash_ok for p in pics)

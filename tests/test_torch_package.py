@@ -82,11 +82,80 @@ def test_encoder_targets_cuda_by_default():
 
 UNSUPPORTED = {
     "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
-    "lossless": dict(lossless=True), "wpp": dict(wpp=True),
-    "scaling": dict(scaling_list="default"), "vaq": dict(vaq=2),
-    "bitrate": dict(target_bitrate=100000), "tiles": dict(tiles=(2, 1)),
+    "lossless": dict(lossless=True),
+    "scaling": dict(scaling_list="default"), "tiles": dict(tiles=(2, 1)),
     "ctu16": dict(ctu_size=16),
 }
+
+
+# option sets (CLI flag, value) on which both encoders are built at
+# 128x64: the port raises where the JAX package raises (with the same
+# exception type) and otherwise writes its VPS, SPS and PPS. "<roi>" is
+# replaced by a ROI map file.
+OPTION_SETS = {
+    "default": (),
+    "wpp": (("wpp", "1"),),
+    "slices_wpp": (("wpp", "1"), ("slices", "wpp")),
+    "slices_wpp_without_wpp": (("slices", "wpp"),),
+    "slices_tiles_without_tiles": (("slices", "tiles"),),
+    "bitrate": (("bitrate", "500000"),),
+    "bitrate_oba": (("bitrate", "500000"), ("rc-algorithm", "oba")),
+    "bitrate_no_rc": (("bitrate", "500000"), ("rc-algorithm", "no-rc")),
+    "bitrate_intra_bits": (("bitrate", "500000"), ("intra-bits", "1")),
+    "bitrate_gop8": (("bitrate", "500000"), ("gop", "8")),
+    "bitrate_lp": (("bitrate", "500000"), ("gop", "lp-g4d3t1")),
+    "lcu_rc": (("period", "1"), ("bitrate", "500000"), ("wpp", "1")),
+    "lcu_oba": (("period", "1"), ("bitrate", "500000"),
+                ("rc-algorithm", "oba")),
+    "lcu_no_rc": (("period", "1"), ("bitrate", "500000"),
+                  ("rc-algorithm", "no-rc")),
+    "vaq": (("vaq", "4"),),
+    "roi": (("roi", "<roi>"),),
+    "vaq_roi_p1": (("vaq", "4"), ("roi", "<roi>"), ("period", "1")),
+    "vaq_bitrate": (("vaq", "4"), ("bitrate", "500000")),
+    "vaq_gop8": (("vaq", "4"), ("gop", "8")),
+    "vaq_lp": (("vaq", "4"), ("gop", "lp-g4d3t1")),
+    "vaq_smp": (("vaq", "4"), ("smp", "1")),
+    "roi_amp_p1": (("roi", "<roi>"), ("amp", "1"), ("period", "1")),
+    "lp_p1": (("gop", "lp-g4d3t1"), ("period", "1")),
+    "lp_p1_ref2": (("gop", "lp-g4d3t1"), ("period", "1"), ("ref", "2")),
+    "gop8_p1": (("gop", "8"), ("period", "1")),
+    "gop4_wpp_slices_oba": (("gop", "4"), ("wpp", "1"), ("slices", "wpp"),
+                            ("bitrate", "500000"), ("rc-algorithm", "oba")),
+}
+
+
+def _build(cfg_mod, api_mod, opts, roi, **kw):
+    """Build an encoder of one package with the option set: returns its
+    parameter sets, or the exception its constructor raised."""
+    cfg = cfg_mod.Config(width=128, height=64)
+    for name, value in opts:
+        cfg.parse(name, roi if value == "<roi>" else value)
+    try:
+        enc = api_mod.Encoder(cfg, **kw)
+    except Exception as e:      # compared with the other package's
+        return e
+    return enc.headers()
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_SETS))
+def test_option_matrix_matches_reference(name, tmp_path):
+    """The port accepts and refuses what the JAX package accepts and
+    refuses (--gop lp-g4d3t1 -p 1 among the refused), and writes its
+    parameter sets where both accept."""
+    import kvazaar_tpu.api as ref_api
+    import kvazaar_tpu.cfg as ref_cfg
+    import kvazaar_tpu_torch.api as api
+    import kvazaar_tpu_torch.cfg as cfg
+    roi = tmp_path / "roi.txt"
+    roi.write_text("2 1\n-3 4\n")
+    want = _build(ref_cfg, ref_api, OPTION_SETS[name], str(roi))
+    got = _build(cfg, api, OPTION_SETS[name], str(roi), device="cpu")
+    if isinstance(want, Exception):
+        assert type(got) is type(want), f"port: {got!r}, reference: {want!r}"
+    else:
+        assert not isinstance(got, Exception), repr(got)
+        assert got == want
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))

@@ -57,10 +57,22 @@ and in tests/data/torch_golden_presets.npz, the preset ladder:
   `leaf64_*`, `leafrd<rd>_<n>_*`, `part<lo><hi>_*`, `nxnrec_*`), the
   inter split DP under the depth gates of DP_GATES (`dp_<name>`) and
   the SMP search's sub-pel refinement at --subme 0, 2 and 4
-  (`subpel<s>_*`).
+  (`subpel<s>_*`);
+
+and in tests/data/torch_golden_rc.npz, WPP, rate control and delta QP
+at 192x128 (3x2 CTBs):
+
+- per RC_CONFIGS entry the stream, every coded frame's maps (`qp_ctb`
+  included under delta QP) and its plan entry (the frame QP), through
+  encode_sequence on mixed content;
+- `capi_stream` / `capi_qps`: RC_CAPI through the JAX package's
+  capi.py with owf = 2;
+- the intra stages under the non-uniform QP map STAGE_QPMAP
+  (`dq_leaf*`, `dq_part_*`, `dq_rec_*`) and the final-QP chain with
+  and without WPP on level planes of DQ_LEVEL_SEED (`dq_fq*`).
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p|gop|presets] (every file when no argument is
+[slice|tools|lowdelay|p|gop|presets|rc] (every file when no argument is
 given).
 """
 from __future__ import annotations
@@ -82,6 +94,7 @@ OUT_P = os.path.join(ROOT, "tests", "data", "torch_golden_p.npz")
 OUT_GOP = os.path.join(ROOT, "tests", "data", "torch_golden_gop.npz")
 OUT_PRESETS = os.path.join(ROOT, "tests", "data",
                            "torch_golden_presets.npz")
+OUT_RC = os.path.join(ROOT, "tests", "data", "torch_golden_rc.npz")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
@@ -851,10 +864,253 @@ def write_presets_golden(path: str = OUT_PRESETS, workers: int = 2) -> None:
     _save(path, data)
 
 
+# WPP, rate control and delta QP at RC_W x RC_H: 3x2 CTBs, so that WPP
+# has rows to synchronise and a QP map has neighbours. RC_KEYS: the maps
+# of every coded frame with the final per-CTB QPs. RC_CONFIGS:
+# (configuration, content, frames): chip_smoke.py's mixed_frames
+# ("mixed") or intra_frames("halfflat"), at RC_BITRATE (600 kbit/s at
+# the default 25 fps: QPs of 11-28 that move from frame to frame) where a
+# bitrate is set. "wpp_rc" is
+# the default configuration with --wpp --bitrate (lambda RC on IDR + 3
+# B, the native writers with WPP); "gop_oba" --gop 4 --wpp --slices wpp
+# with OBA RC and the intra bit allocation (pyramid layers, a slice
+# segment a CTB row through the Python writers); "lcu_rc" -p 1 --bitrate
+# --wpp (LCU RC: a QP map, the final-QP chain reset every row);
+# "lcu_oba" -p 1 with OBA (update_oba); "vaq_roi" --vaq 8 --roi with
+# SAO, RDOQ and sign hiding (every frame intra); "vaq_leaves" --vaq 8
+# --pu-depth-intra 0-4 --rd 3 on half flat content (VAQ offsets that
+# differ between CTBs, NxN cells and 64 leaves).
+RC_W, RC_H = 192, 128
+RC_BITRATE = 600_000
+RC_KEYS = MAP_KEYS + ("mode_map4", "qp_ctb")
+# the ROI map of "vaq_roi": 4x3 delta QPs over the 3x2 CTBs
+ROI_TEXT = "4 3\n-4 0 3 6\n2 -2 5 -6\n1 1 -3 0\n"
+RC_CONFIGS = {
+    "wpp_rc": (dict(wpp=True, target_bitrate=RC_BITRATE), "mixed", 4),
+    "gop_oba": (dict(gop_len=4, wpp=True, slices="wpp",
+                     target_bitrate=RC_BITRATE, rc_algorithm="oba",
+                     intra_bits=True), "mixed", 6),
+    "lcu_rc": (dict(intra_period=1, target_bitrate=RC_BITRATE, wpp=True),
+               "mixed", 3),
+    "lcu_oba": (dict(intra_period=1, target_bitrate=RC_BITRATE,
+                     rc_algorithm="oba"), "mixed", 2),
+    "vaq_roi": (dict(vaq=8, roi_file="<roi>", sao_type="full",
+                     rdoq_enable=True, signhide_enable=True), "mixed", 2),
+    "vaq_leaves": (dict(vaq=8, pu_depth_intra=(0, 4), rd=3), "halfflat",
+                   1),
+}
+# the capi run: "lcu_rc"'s options through config_parse, with owf = 2
+RC_CAPI = (("period", "1"), ("bitrate", str(RC_BITRATE)), ("wpp", "1"),
+           ("owf", "2"))
+RC_CAPI_FRAMES = 4
+# the intra stages: one QP per CTB of RC_H x RC_W, at STAGE_QP's slice
+STAGE_QPMAP = np.array([[22, 31, 25], [35, 19, 27]], np.int32)
+DQ_LEVEL_SEED = 33
+
+
+def rc_frames(n: int, kind: str = "mixed") -> list:
+    if kind == "halfflat":
+        return intra_frames(kind, n, RC_W, RC_H)
+    from chip_smoke import mixed_frames
+    return mixed_frames(n, RC_W, RC_H)
+
+
+def rc_case_frames(name: str) -> list:
+    """The frames of an RC_CONFIGS entry."""
+    _, kind, n = RC_CONFIGS[name]
+    return rc_frames(n, kind)
+
+
+def rc_config(name: str, roi_path: str) -> dict:
+    """Config options of an RC_CONFIGS entry; a ROI map is written to
+    roi_path."""
+    cfg = dict(RC_CONFIGS[name][0])
+    if "roi_file" in cfg:
+        with open(roi_path, "w") as f:
+            f.write(ROI_TEXT)
+        cfg["roi_file"] = roi_path
+    return cfg
+
+
+def capi_stream(api, frames, **open_kw) -> tuple[bytes, list[int]]:
+    """Drive a kvz_api (the JAX package's capi or the port's) with the
+    options of RC_CAPI: every frame in, then None until the pipeline is
+    drained; returns (stream, QP of each returned picture)."""
+    cfg = api.config_alloc()
+    for name, value in RC_CAPI:
+        assert api.config_parse(cfg, name, value)
+    cfg.width, cfg.height = frames[0][0].shape[1], frames[0][0].shape[0]
+    enc = api.encoder_open(cfg, **open_kw)
+    out, qps = b"", []
+    feed = [f for f in frames] + [None] * len(frames)
+    for f in feed:
+        pic = None
+        if f is not None:
+            pic = api.picture_alloc(cfg.width, cfg.height)
+            pic.y[:], pic.u[:], pic.v[:] = f
+        data, _, info = api.encoder_encode(enc, pic)
+        if data:
+            out += data
+            qps.append(int(info.qp))
+    api.encoder_close(enc)
+    return out, qps
+
+
+def dq_levels() -> tuple:
+    """Sparse level planes at RC_H x RC_W whose CTBs (0, 1), (1, 0) and
+    (1, 2) code no coefficient, so the final-QP chain carries a
+    predecessor's QP there (across the row end without WPP)."""
+    rng = np.random.RandomState(DQ_LEVEL_SEED)
+    planes = []
+    for h, w, n in ((RC_H, RC_W, 64), (RC_H // 2, RC_W // 2, 32),
+                    (RC_H // 2, RC_W // 2, 32)):
+        lv = rng.randint(-3, 4, (h, w)) * (rng.rand(h, w) < 0.02)
+        for r, c in ((0, 1), (1, 0), (1, 2)):
+            lv[r * n:(r + 1) * n, c * n:(c + 1) * n] = 0
+        planes.append(lv.astype(np.int32))
+    return tuple(planes)
+
+
+def jax_dq_consts(p, qm):
+    """The JAX pipeline p's constants with the per-CTB QP map qm, as its
+    submit(qp_map=qm) sets them."""
+    import jax.numpy as jnp
+    from kvazaar_tpu.tables import chroma_qp
+    consts = dict(p.consts)
+    consts["qpmap_y"] = jnp.asarray(qm)
+    consts["qpmap_c"] = jnp.asarray(
+        np.vectorize(chroma_qp)(qm).astype(np.int32))
+    consts["lammap"] = jnp.asarray(0.57 * 2.0 ** ((qm - 12) / 3.0),
+                                   jnp.float32)
+    return consts
+
+
+def jax_dq_stages() -> dict:
+    """The JAX intra stages under delta QP with STAGE_QPMAP on
+    intra_frames("halfflat") at RC_H x RC_W: _leaf_rd at --rd 0 and 2
+    (n = 8, 16, 32), _leaf_rd4, _leaf_rd64, _partition at depths 0-4,
+    partition and reconstruction with RDOQ and sign hiding at depths 1-4,
+    and _final_qp with and without WPP on dq_levels."""
+    import jax
+    import jax.numpy as jnp
+    from kvazaar_tpu.models.intra_md import MdIntraPipeline
+    src = tuple(jnp.asarray(p, jnp.int32)
+                for p in intra_frames("halfflat", 1, RC_W, RC_H)[0])
+    qm = STAGE_QPMAP
+    out = {}
+
+    def run(p, fn, *args):
+        return jax.jit(p._with_consts(fn))(jax_dq_consts(p, qm), *args)
+
+    for rd in (0, 2):
+        p = MdIntraPipeline(RC_H, RC_W, STAGE_QP, delta_qp=True, rd=rd)
+        for n in (8, 16, 32):
+            def leaf(y, cb, cr, p=p, n=n):
+                g, f, gc, t, tc = {
+                    8: (p.g8l, p.f8, p.g4c, p.t8, p.t4),
+                    16: (p.g16l, p.f16l, p.g8cc, p.t16, p.t8),
+                    32: (p.g32l, p.f32, p.g16c, p.t32, p.t16)}[n]
+                return p._leaf_rd(y, cb, cr, n, g, f, gc, t, tc,
+                                  p.lam2[0])
+            m, c = run(p, leaf, *src)
+            out[f"dq_leafrd{rd}_{n}_modes"] = m
+            out[f"dq_leafrd{rd}_{n}_cost"] = c
+    p = MdIntraPipeline(RC_H, RC_W, STAGE_QP, delta_qp=True,
+                        pu_depth=(0, 4))
+
+    def leaf4(y, cb, cr):
+        return p._leaf_rd4(y, cb, cr, p.lam2[0])
+
+    def leaf64(y, cb, cr):
+        return p._leaf_rd64(y, cb, cr, p.lam2[0])
+
+    def part(y, cb, cr):
+        return p._partition(y, cb, cr, p.lam2[0])
+    out["dq_leaf4_modes"], out["dq_leaf4_cost"] = run(p, leaf4, *src)
+    out["dq_leaf64_modes"], out["dq_leaf64_cost"] = run(p, leaf64, *src)
+    for k, v in zip(("size_map8", "mode_map8", "mode_map4"),
+                    run(p, part, *src)):
+        out[f"dq_part_{k}"] = v
+    p = MdIntraPipeline(RC_H, RC_W, STAGE_QP, delta_qp=True,
+                        pu_depth=(1, 4), rdoq=True, sign_hiding=True)
+
+    def rec(y, cb, cr):
+        sm, mm, m4 = p._partition(y, cb, cr, p.lam2[0])
+        luma, chroma, _, _ = p._recon_md(y, cb, cr, sm, mm, mode_map4=m4)
+        return sm, mm, m4, luma, chroma
+    for k, v in zip(("size_map8", "mode_map8", "mode_map4", "luma",
+                     "chroma"), run(p, rec, *src)):
+        out[f"dq_rec_{k}"] = v
+    lv = tuple(jnp.asarray(a) for a in dq_levels())
+    for wpp in (False, True):
+        p = MdIntraPipeline(RC_H, RC_W, STAGE_QP, delta_qp=True, wpp=wpp)
+        out["dq_fq_wpp" if wpp else "dq_fq"] = run(p, p._final_qp, *lv)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _rc_part(part: str) -> dict:
+    """The arrays of one part of the RC golden: an RC_CONFIGS stream (with
+    the capi run after "lcu_rc", whose program it shares) or the stages
+    ("stages")."""
+    import json
+    import tempfile
+    import time
+    t = time.perf_counter()
+    if part == "stages":
+        data = jax_dq_stages()
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = rc_config(part, os.path.join(tmp, "roi.txt"))
+            stream, decs, plan = jax_gop_stream(rc_case_frames(part),
+                                                RC_KEYS, **cfg)
+        data = _stream_arrays(part + "_", stream, decs)
+        data[f"{part}_plan"] = np.array(json.dumps(plan))
+        if part == "lcu_rc":
+            from kvazaar_tpu.capi import kvz_api_get
+            stream, qps = capi_stream(kvz_api_get(8),
+                                      rc_frames(RC_CAPI_FRAMES))
+            data["capi_stream"] = np.frombuffer(stream, np.uint8)
+            data["capi_qps"] = np.asarray(qps, np.int32)
+    print(f"{part}: {time.perf_counter() - t:.1f} s", flush=True)
+    return data
+
+
+RC_PARTS = (("wpp_rc", "gop_oba"),
+            ("lcu_rc", "lcu_oba", "vaq_roi", "vaq_leaves", "stages"))
+
+
+def write_rc_golden(path: str = OUT_RC, only=()) -> None:
+    """Each part in a fresh process: the two inter streams one after the
+    other in one worker, the intra parts in a second worker beside it
+    (two inter programs compiling at once need more memory than one
+    intra and one inter). `only`: run these parts and merge them into
+    the existing file."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = multiprocessing.get_context("spawn")
+    lanes = [[p for p in lane if not only or p in only]
+             for lane in RC_PARTS]
+    pools = [ProcessPoolExecutor(1, max_tasks_per_child=1, mp_context=ctx)
+             for _ in lanes]
+    futs = [pool.submit(_rc_part, part)
+            for pool, parts in zip(pools, lanes) for part in parts]
+    data = dict(np.load(path)) if only else {}
+    for f in futs:
+        data.update(f.result())
+    for pool in pools:
+        pool.shutdown()
+    _save(path, data)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
-                             "presets"]
+                             "presets", "rc"]
+    if which[0] == "rc" and len(which) > 1:
+        # python tools/torch_goldens.py rc <part> ...: re-run those parts
+        write_rc_golden(only=tuple(which[1:]))
+        sys.exit(0)
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
-         "gop": write_gop_golden, "presets": write_presets_golden}[w]()
+         "gop": write_gop_golden, "presets": write_presets_golden,
+         "rc": write_rc_golden}[w]()
