@@ -73,8 +73,8 @@ Phases (each prints its lines; any failure exits non-zero):
    with the same streams and maps: every intra depth (--pu-depth-intra
    0-4, --rd 3, the tool row with sign hiding) on one frame of half
    detailed, half flat content at 416x240, at least 2% of its cells NxN
-   and 5% 64x64 leaves; and ultrafast, veryfast, fast, medium, slow and
-   placebo at 416x240 (3 frames each);
+   and 5% 64x64 leaves; and ultrafast, medium and placebo at 416x240 (3
+   frames each);
 11. WPP, rate control and delta QP: (i) the default configuration with
    --wpp --slices wpp, IDR + 2 B at 1920x1080 (17 slice segments a
    picture, the later ones dependent, through the Python writers),
@@ -90,18 +90,29 @@ Phases (each prints its lines; any failure exits non-zero):
    the clip band's floor, which is printed); (iv) on cuda and on the CPU at
    416x240 with the same streams and maps: --vaq 8 --roi with the tool
    row (2 frames) and --gop 4 --wpp --slices wpp with OBA rate control
-   and the intra bit allocation (5 frames: IDR, P 4, B 2 1 3).
-The hash-exact decodes of phases 4-11's encodes run in a worker process
-beside the later phases, and are checked after phase 11; the CPU half of
+   and the intra bit allocation (5 frames: IDR, P 4, B 2 1 3);
+12. the remaining intra variants: (i) --transform-skip --pu-depth-intra
+   1-4 with the CPU tests' --fast-coeff-table at QP 27, IDR + 2 B of
+   screen content at 1920x1080 (8 me_refine and 12 me_eval launches a B
+   frame; the Python writers), hash-exact, transform skip chosen on some
+   TU of the IDR; (ii) -p 1 --input-bitdepth 10 --scaling-list default
+   with SAO full, RDOQ and sign hiding, 1 frame of 10-bit content at
+   1920x1080 through the native writer, hash-exact, its SPS Main 10;
+   (iii) on cuda and on the CPU at 416x240 with the same streams and
+   maps, hash-exact: transform skip (IDR + 2 B), Main 10 with the tool
+   row (2 frames), a --cqmfile (2 frames) and lossless coding (2 frames,
+   the reconstruction the source).
+The hash-exact decodes of phases 4-12's encodes run in a worker process
+beside the later phases, and are checked after phase 12; the CPU half of
 every cuda-against-CPU run runs in another, beside its cuda half.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6, 7, 8, 9, 10 and 11; me_eval's pair and
-one-list modes in rows of their own), the nvidia-smi name/power-limit
+over the encodes of phases 4, 6, 7, 8, 9, 10, 11 and 12; me_eval's pair
+and one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
-The helpers mixed_frames, split_motion_frames, kernel_inputs,
-tie_planes, tie_inputs, kernel_errors, compare_devices, open_device and
-phase_kernels are shared
+The helpers mixed_frames, split_motion_frames, screen_frames,
+main10_frames, kernel_inputs, tie_planes, tie_inputs, kernel_errors,
+compare_devices, open_device and phase_kernels are shared
 with tests/test_torch_cuda.py and tools/ (tools/me_bench.py runs phases
 1-3 alone).
 """
@@ -148,9 +159,10 @@ P_SMP = dict(bipred=False, smp_enable=True, amp_enable=True, ref_frames=2)
 # tool row; and the open-GOP pyramid (a CRA picture every 8 frames)
 GOP8 = dict(intra_period=24, gop_len=8)
 OPEN_GOP = dict(intra_period=8, gop_len=8, open_gop=True)
-# the presets of phase 10's 416x240 CUDA-vs-CPU runs
-SMALL_PRESETS = ("ultrafast", "veryfast", "fast", "medium", "slow",
-                 "placebo")
+# the presets of phase 10's 416x240 CUDA-vs-CPU runs: the ends of the
+# ladder and medium (NxN, RDOQ, GOP 16); veryfast, fast and slow were cut
+# to keep the smoke inside its time limit with phase 12
+SMALL_PRESETS = ("ultrafast", "medium", "placebo")
 # phase 10's intra leaves: every intra depth (64x64 leaves to NxN 4x4),
 # the --rd ladder at its deepest and the tool row with sign hiding, at QP
 # 27 on leaf_frames (the configuration and content of the CPU tests'
@@ -174,6 +186,23 @@ VAQ_ROI = dict(TOOL_ROW, vaq=8)
 GOP_OBA = dict(gop_len=4, wpp=True, slices="wpp", target_bitrate=2_000_000,
                rc_algorithm="oba", intra_bits=True)
 SMOKE_ROI = "4 3\n-4 0 3 6\n2 -2 5 -6\n1 1 -3 0\n"
+# phase 12, the remaining intra variants: (i) transform skip with NxN
+# leaves and the CPU tests' --fast-coeff-table (the learned weights at 1.5
+# times, no 32x32 entry) at QP 27; (ii) Main 10 with the default scaling
+# lists, SAO full, RDOQ and sign hiding, all-intra; (iii) at 416x240 the
+# CPU tests' goldens "trskip_b", "main10", "cqm" and "lossless"
+# (tools/torch_goldens.py VARIANT_CONFIGS), with their content
+FCT_TABLE = os.path.join("tests", "data", "torch_fct_table.json")
+CQM_FILE = os.path.join("tests", "data", "torch_cqm.txt")
+TRSKIP_FCT = dict(qp=27, trskip_enable=True, pu_depth_intra=(1, 4),
+                  fast_coeff_table=FCT_TABLE)
+MAIN10_SCALING = dict(TOOL_LDB, intra_period=1, input_bitdepth=10,
+                      scaling_list="default")
+VARIANTS_416 = (("trskip_b", dict(trskip_enable=True), "mixed", 3),
+                ("main10", dict(TOOL_LDB, qp=30, input_bitdepth=10),
+                 "main10", 2),
+                ("cqm", dict(cqmfile=CQM_FILE, qp=30), "mixed", 2),
+                ("lossless", dict(lossless=True), "mixed", 2))
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -261,6 +290,45 @@ def leaf_frames(n, w, h):
         cr[:, w // 4:] = 100 + np.arange(w // 4)[None, :] // 2
         out.append((y.clip(0, 255).astype(np.uint8), cb.astype(np.uint8),
                     cr.astype(np.uint8)))
+    return out
+
+
+def screen_frames(n, w, h, seed=1234):
+    """Screen content (the generator of tests/test_trskip.py,
+    `_screen_frame`, with the seed of its `rng` fixture): in the top half
+    sparse bright dots on a flat ground (isolated-spike residuals, where
+    transform skip wins), below a smooth sine field; Cb with sparse dots
+    in its top half, Cr its vertical mirror. Fresh dots every frame."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        y = np.full((h, w), 100, np.uint8)
+        dots = rng.rand(h // 2, w) < 0.015
+        y[:h // 2][dots] = 230
+        xx, yy = np.meshgrid(np.arange(w), np.arange(h // 2))
+        y[h // 2:] = (96 + 40 * np.sin(xx / 37) * np.cos(yy / 29)) \
+            .astype(np.uint8)
+        cb = np.full((h // 2, w // 2), 128, np.uint8)
+        cdots = rng.rand(h // 4, w // 2) < 0.02
+        cb[:h // 4][cdots] = 240
+        out.append((y, cb, cb[::-1].copy()))
+    return out
+
+
+def main10_frames(n, w, h, seed=1234):
+    """10-bit content spanning 0-1023 (the generator of
+    tests/test_main10.py, `_frames10`, with the seed of its `rng`
+    fixture): a wrapping luma ramp with random samples in the bottom-left
+    quarter, a sine Cb and random Cr, as uint16."""
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    out = []
+    for i in range(n):
+        y = ((280 + xx + yy // 2 + 20 * i) % 1024).astype(np.uint16)
+        y[h // 2:, :w // 2] = rng.randint(0, 1024, (h - h // 2, w // 2))
+        cb = (512 + 80 * np.sin(xx[:h // 2, :w // 2] / 9)).astype(np.uint16)
+        cr = rng.randint(0, 1024, (h // 2, w // 2)).astype(np.uint16)
+        out.append((y, cb, cr))
     return out
 
 
@@ -760,8 +828,8 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
     Queues the stream's decode (decode_check), which check_decodes
     requires to be hash-exact, in display order and equal to the
     encoder's reconstruction. Returns (launches, infos, per coded frame the
-    maps size_map8, inter8, dir8, ref8, ref8b, part8 and qp_ctb where
-    present, with the frame's plan: disp, l0, l1, nal)."""
+    maps size_map8, inter8, dir8, ref8, ref8b, part8, qp_ctb and ts8
+    where present, with the frame's chunk and plan: disp, l0, l1, nal)."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
@@ -779,9 +847,9 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
         out = finalize(meta)
         m = {k: np.asarray(enc._last_decisions[k])
              for k in ("size_map8", "inter8", "dir8", "ref8", "ref8b",
-                       "part8", "qp_ctb")
+                       "part8", "qp_ctb", "ts8")
              if k in enc._last_decisions}
-        m.update(disp=meta["frame_num"], l0=list(meta["l0"]),
+        m.update(chunk=out[0], disp=meta["frame_num"], l0=list(meta["l0"]),
                  l1=list(meta["l1"]),
                  nal="IDR" if meta["is_idr"] else meta["nal"]
                  or ("TRAIL_R" if meta["is_ref"] else "TRAIL_N"))
@@ -1198,6 +1266,64 @@ def phase_rc(torch, me, main_maps):
     return {k: li[k] + lii[k] + liii[k] for k in li}
 
 
+def stream_sps(stream: bytes):
+    """The SPS of an Annex-B stream, through the port's parser."""
+    from kvazaar_tpu_torch.bitstream import (NAL_SPS, ebsp_to_rbsp,
+                                             split_annexb)
+    from kvazaar_tpu_torch.hevc.headers import parse_sps
+    for nal_type, _, ebsp in split_annexb(stream):
+        if nal_type == NAL_SPS:
+            return parse_sps(ebsp_to_rbsp(ebsp))
+    fail("no SPS in the stream")
+
+
+def phase_variants(torch, me):
+    """The remaining intra variants: (i) TRSKIP_FCT, IDR + 2 B of
+    screen_frames at 1080p through the Python writers, hash-exact, with
+    transform skip chosen in the IDR (its ts8 map) and 8 me_refine and 12
+    me_eval launches a B frame; (ii) MAIN10_SCALING, 1 frame of
+    main10_frames at 1080p through the native writer, hash-exact, its SPS
+    Main 10 with scaling lists; (iii) VARIANTS_416 at 416x240 on cuda and
+    on the CPU: the same streams and maps, hash-exact, the lossless
+    reconstruction the source. Returns the launches of (i) and (ii)."""
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    li, infos, maps = encode_timed(torch, me, TRSKIP_FCT,
+                                   screen_frames(3, W, H),
+                                   "transform skip + fct (i)", native=False)
+    ts8 = maps[0]["ts8"]
+    print(f"  IDR transform-skip TUs: NxN luma {int(ts8[..., :4].sum())}, "
+          f"Cb {int(ts8[..., 4].sum())}, Cr {int(ts8[..., 5].sum())}; "
+          f"NxN cells {int((maps[0]['size_map8'] == 4).sum())}", flush=True)
+    if not ts8.any():
+        fail("transform skip: the IDR chose it on no TU")
+    lii, infos, maps = encode_timed(torch, me, MAIN10_SCALING,
+                                    main10_frames(1, W, H),
+                                    "Main 10 + scaling lists (ii)")
+    sps = stream_sps(maps[0]["chunk"])
+    rec_y = infos[0]["recon_out"][0]
+    print(f"  SPS: profile {sps.ptl.general_profile_idc}, bit depth "
+          f"{sps.bit_depth_luma}/{sps.bit_depth_chroma}, scaling lists "
+          f"{sps.scaling_list_enabled}; reconstructed luma "
+          f"{int(rec_y.min())}..{int(rec_y.max())}", flush=True)
+    if (sps.ptl.general_profile_idc, sps.bit_depth_luma,
+            sps.scaling_list_enabled) != (2, 10, 1):
+        fail("Main 10: the SPS is not Main 10 with scaling lists")
+    for name, cfg, kind, n in VARIANTS_416:
+        t = time.perf_counter()
+        frames = (main10_frames(n, 416, 240) if kind == "main10"
+                  else mixed_frames(n, 416, 240))
+        stream, rows = compare_devices(frames, 416, 240, **cfg)
+        parity_rows(f"{name} (iii)", rows, t)
+        pics = HEVCDecoder().decode(stream)
+        if len(pics) != n or not all(p.hash_ok for p in pics):
+            fail(f"{name}: the stream does not decode hash-exactly")
+        if name == "lossless" and not all(
+                np.array_equal(a, b) for p, f in zip(pics, frames)
+                for a, b in zip(p.planes, f)):
+            fail("lossless: the reconstruction is not the source")
+    return {k: li[k] + lii[k] for k in li}
+
+
 def phase_device_parity():
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps."""
@@ -1276,6 +1402,7 @@ def main() -> None:
     runs.append(phase_gop(torch, me))
     runs.append(phase_presets(torch, me))
     runs.append(phase_rc(torch, me, main_maps))
+    runs.append(phase_variants(torch, me))
     check_decodes()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "

@@ -4,8 +4,9 @@ Usage:  python -m kvazaar_tpu_torch -i in.yuv --input-res 1920x1080 \
             -o out.hevc [--qp 22] [--preset medium] [--frames N] \
             [--device cuda]
 
-Same options as python -m kvazaar_tpu; the ones outside the ported
-configuration raise NotImplementedError (see ROADMAP.md). --preset is
+Same options as python -m kvazaar_tpu, plus --transform-skip and
+--device; the ones outside the ported configuration raise
+NotImplementedError (see ROADMAP.md). --preset is
 applied after the other flags, so its knobs override theirs.
 """
 from __future__ import annotations
@@ -70,6 +71,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--input-bitdepth", type=int, default=8,
                    choices=[8, 10])
     p.add_argument("--lossless", action="store_true")
+    p.add_argument("--transform-skip", dest="transform_skip",
+                   action="store_true",
+                   help="transform skip on 4x4 TUs (an RD choice per TU)")
     p.add_argument("--scaling-list", dest="scaling_list",
                    choices=["off", "default"], default="off")
     p.add_argument("--rc-algorithm", dest="rc_algorithm",
@@ -138,6 +142,7 @@ def main(argv=None) -> int:
                  deblock_enable=args.deblock, vaq=args.vaq,
                  roi_file=args.roi, input_bitdepth=reader.bit_depth,
                  lossless=args.lossless, scaling_list=args.scaling_list,
+                 trskip_enable=args.transform_skip,
                  rc_algorithm=args.rc_algorithm,
                  source_scan_type=args.source_scan_type,
                  aud_enable=args.aud, vps_period=args.vps_period,

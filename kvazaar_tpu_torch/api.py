@@ -2,11 +2,15 @@
 
 Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
 at a time, returning Annex-B chunks) for the configuration this port
-covers: CTB 64, 8-bit, deblocking, SAO, RDOQ and sign-data hiding, WPP
-(--wpp; --slices wpp codes a slice segment a CTB row), rate control
+covers: CTB 64, deblocking, SAO, RDOQ and sign-data hiding, transform
+skip (--transform-skip), a --fast-coeff-table rate model, Main 10
+(--input-bitdepth 10), scaling lists (--scaling-list, --cqmfile) and
+lossless coding (--lossless: deblocking, SAO, sign hiding and RDOQ off),
+WPP (--wpp; --slices wpp codes a slice segment a CTB row), rate control
 (--bitrate with --rc-algorithm lambda or oba: a QP a frame, and on
 all-intra streams a QP a CTB), delta QP (--vaq, --roi: every frame
-intra, a QP a CTB), an IDR every `intra_period` frames and low-delay
+intra, a QP a CTB; 10-bit, scaling lists and lossless code every frame
+intra as well), an IDR every `intra_period` frames and low-delay
 frames in
 between with 1-4 reference pictures (--ref): generalized-B slices (list 1
 = list 0, bi-prediction on; the B program searches the first two of each
@@ -17,8 +21,9 @@ pictures); and the B pyramid (--gop 2/4/8/16, closed or --open-gop):
 display-order frames fed through push_frame/flush are coded span by span
 in coding order (engine/gop.py's GopScheduler), a P anchor (or an
 open-GOP CRA picture) then the dyadic B pictures with past pictures in
-list 0 and future ones in list 1. Options outside that raise
-NotImplementedError naming their ROADMAP.md entry.
+list 0 and future ones in list 1. Options outside that (crypto, field
+coding, tiles, CTU sizes other than 64) raise NotImplementedError naming
+their ROADMAP.md entry.
 
 Rate control chooses a frame's QP when its device work is submitted and
 learns from its bits when it is finalized, so in the pipelined loops
@@ -53,6 +58,8 @@ def build_sps(cfg: Config) -> SPS:
     sps.width = cfg.width
     sps.height = cfg.height
     sps.bit_depth_luma = sps.bit_depth_chroma = cfg.input_bitdepth
+    if cfg.input_bitdepth > 8:
+        sps.ptl.general_profile_idc = 2      # Main 10
     ctb_log2 = int(math.log2(cfg.ctu_size))
     min_cb_log2 = int(math.log2(cfg.min_cu_size))
     sps.log2_min_cb_size = min_cb_log2
@@ -62,7 +69,7 @@ def build_sps(cfg: Config) -> SPS:
     sps.max_transform_hierarchy_depth_intra = cfg.tr_depth_intra
     sps.max_transform_hierarchy_depth_inter = 0
     sps.sao_enabled = 0 if cfg.sao_type == "off" else 1
-    sps.scaling_list_enabled = 0
+    sps.scaling_list_enabled = 0 if cfg.scaling_list == "off" else 1
     sps.amp_enabled = 1 if cfg.amp_enable else 0
     sps.strong_intra_smoothing = 1 if cfg.strong_intra_smoothing else 0
     sps.temporal_mvp_enabled = 1 if cfg.intra_period != 1 else 0
@@ -88,8 +95,8 @@ def build_pps(cfg: Config) -> PPS:
     pps = PPS()
     pps.init_qp = cfg.qp
     pps.sign_data_hiding_enabled = 1 if cfg.signhide_enable else 0
-    pps.transform_skip_enabled = 0
-    pps.transquant_bypass_enabled = 0
+    pps.transform_skip_enabled = 1 if cfg.trskip_enable else 0
+    pps.transquant_bypass_enabled = 1 if cfg.lossless else 0
     pps.entropy_coding_sync_enabled = 1 if cfg.wpp else 0
     pps.deblocking_filter_control_present = 1
     pps.deblocking_filter_disabled = 0 if cfg.deblock_enable else 1
@@ -114,34 +121,43 @@ def check_config(cfg: Config) -> None:
         raise ValueError("--slices wpp requires --wpp")
     if cfg.slices == "tiles" and tuple(cfg.tiles) == (1, 1):
         raise ValueError("--slices tiles requires a tile grid")
-    # VAQ and ROI code every frame intra, as --period 1 does: no GOP and
-    # no SMP/AMP then (the reference refuses both)
-    all_intra = cfg.intra_period == 1 or bool(cfg.vaq or cfg.roi_file)
+    if cfg.trskip_enable and tuple(cfg.tiles) != (1, 1):
+        raise NotImplementedError(
+            "--transform-skip with tiles is not wired up yet")
+    # every frame is coded intra with --period 1, and (as in the
+    # reference, kvazaar_tpu/api.py:247-254) with VAQ, ROI, 10-bit,
+    # lossless or a scaling list: no GOP then, nor SMP/AMP (the reference
+    # refuses both)
+    all_intra = cfg.intra_period == 1 or not _inter_coding(cfg)
     if cfg.gop_len > 1 and all_intra:
         raise NotImplementedError(
             "a GOP (--gop) needs inter frames: not with --period 1, "
-            "--vaq or --roi")
+            "--vaq, --roi, 10-bit, --lossless or a scaling list")
     if (cfg.smp_enable or cfg.amp_enable) and all_intra \
             and cfg.intra_period != 1:
         raise NotImplementedError(
-            "SMP/AMP needs inter frames: not with --vaq or --roi")
-    intra = "the remaining intra variants"
+            "SMP/AMP needs inter frames: not with --vaq, --roi, 10-bit, "
+            "--lossless or a scaling list")
+    crypto_field = "selective encryption and field coding"
     tiles = "tiles/multi-device"
     grid16 = "the 16-grid pipelines"
     for bad, what, entry in (
             (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
-            (cfg.input_bitdepth != 8, "10-bit", intra),
-            (cfg.trskip_enable, "transform skip", intra),
-            (cfg.lossless, "lossless", intra),
-            (cfg.scaling_list != "off" or bool(cfg.cqmfile),
-             "scaling lists", intra),
-            (bool(cfg.fast_coeff_table), "--fast-coeff-table", intra),
-            (cfg.crypto not in ("off", ""), "selective encryption", intra),
-            (cfg.source_scan_type != "progressive", "field coding", intra),
+            (cfg.crypto not in ("off", ""), "selective encryption",
+             crypto_field),
+            (cfg.source_scan_type != "progressive", "field coding",
+             crypto_field),
             (tuple(cfg.tiles) != (1, 1), "tiles", tiles),
             (cfg.slices == "tiles", "--slices tiles", tiles)):
         if bad:
             raise unsupported(what, entry)
+
+
+def _inter_coding(cfg: Config) -> bool:
+    """Whether the options allow inter frames at all: not with VAQ, ROI,
+    10-bit, lossless or a scaling list (the reference's `inter_md`)."""
+    return not (cfg.vaq or cfg.roi_file or cfg.lossless
+                or cfg.input_bitdepth != 8 or cfg.scaling_list != "off")
 
 
 class Encoder:
@@ -154,6 +170,13 @@ class Encoder:
         import torch
         cfg.validate()
         check_config(cfg)
+        if cfg.lossless:
+            # transquant bypass: the loop filters never touch bypass
+            # samples, and RDOQ and sign hiding have nothing to act on
+            cfg.deblock_enable = False
+            cfg.sao_type = "off"
+            cfg.signhide_enable = False
+            cfg.rdoq_enable = False
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -169,11 +192,11 @@ class Encoder:
         self.pps = build_pps(cfg)
         self.frame_num = 0
         self.poc = 0
-        # VAQ / ROI code every frame intra with a QP a CTB; rate control
-        # adds a QP a CTB (LCU RC) on all-intra streams only, and a QP a
-        # frame everywhere. QG == CTB (diff_cu_qp_delta_depth 0).
-        self.inter_enabled = (cfg.intra_period != 1
-                              and not (cfg.vaq or cfg.roi_file))
+        # VAQ / ROI code every frame intra with a QP a CTB (10-bit,
+        # lossless and scaling lists every frame intra at one QP); rate
+        # control adds a QP a CTB (LCU RC) on all-intra streams only, and
+        # a QP a frame everywhere. QG == CTB (diff_cu_qp_delta_depth 0).
+        self.inter_enabled = cfg.intra_period != 1 and _inter_coding(cfg)
         self.lcu_rc = cfg.target_bitrate > 0 and not self.inter_enabled
         self.dqp_enabled = bool(cfg.vaq or cfg.roi_file) or self.lcu_rc
         self._roi = None
@@ -192,7 +215,8 @@ class Encoder:
                   deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
                   rdoq=cfg.rdoq_enable, sign_hiding=cfg.signhide_enable,
                   pu_depth=tuple(cfg.pu_depth_intra), rd=cfg.rd,
-                  device=self.device)
+                  fast_coeff_table=cfg.fast_coeff_table,
+                  trskip=cfg.trskip_enable, device=self.device)
         if self.inter_enabled:
             from .models.inter_md import MdInterPipeline
             self._pipeline = MdInterPipeline(
@@ -202,9 +226,20 @@ class Encoder:
                 bipred=cfg.bipred, **kw)
         else:
             from .models.intra_md import MdIntraPipeline
+            scaling = None
+            if cfg.scaling_list != "off":
+                from .hevc.scaling import ScalingLists, load_cqmfile
+                if cfg.cqmfile:
+                    # a custom matrix set is signalled in the SPS
+                    scaling = self.sps.scaling_lists = load_cqmfile(
+                        cfg.cqmfile)
+                else:
+                    scaling = ScalingLists()
             self._pipeline = MdIntraPipeline(
                 self.sps.height, self.sps.width, cfg.qp,
-                delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp), **kw)
+                delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp),
+                bit_depth=cfg.input_bitdepth, scaling=scaling,
+                lossless=cfg.lossless, **kw)
         # the low-delay GOP's per-position plan (--gop lp-gGdDtT)
         self._lp = None
         if cfg.gop_lowdelay and self.inter_enabled:
@@ -508,8 +543,9 @@ class Encoder:
     def _slice_data(self, meta, sh, decisions):
         """Entropy-code the slice: the native C++ writers, or the Python
         writers where the library cannot be built, for SMP/AMP slices
-        (the native writer has no part_mode syntax), under delta QP and
-        with --slices (as the reference routes them). With WPP each CTB
+        (the native writer has no part_mode syntax), under delta QP, with
+        --slices, transform skip and lossless coding (as the reference
+        routes them; 10-bit and scaling lists stay native). With WPP each CTB
         row is a substream that starts from the contexts saved after the
         row above's second CTB, with the QP chain reset. Returns
         (substreams, motion field for TMVP or None, the bits of each CTB
@@ -521,7 +557,8 @@ class Encoder:
         wpp = bool(self.pps.entropy_coding_sync_enabled)
         seg_mode = self.cfg.slices != "none"
         n_y, n_x = self.sps.height_in_ctbs, self.sps.width_in_ctbs
-        python_only = self.dqp_enabled or seg_mode
+        python_only = (self.dqp_enabled or seg_mode or self.cfg.lossless
+                       or self.cfg.trskip_enable)
 
         def split(data, sizes):
             out, off = [], 0

@@ -233,6 +233,9 @@ class MdPSliceWriter(PSliceWriter):
         cab.encode_bin(ContextSet.idx("cbf_chroma", 0), cbf_cb)
         cab.encode_bin(ContextSet.idx("cbf_chroma", 0), cbf_cr)
         c_log2 = log2_size - 2
+        # a 4x4 chroma TU of an inter CU codes transform_skip_flag too
+        # (spec 7.3.8.11; the JAX package's writer omits it)
+        tse = bool(self.pps.transform_skip_enabled)
         for (dx, dy) in ((0, 0), (half, 0), (0, half), (half, half)):
             qly, qlcb, qlcr = self._levels_at(x0 + dx, y0 + dy, half)
             q_cb = 1 if qlcb.any() else 0
@@ -246,9 +249,11 @@ class MdPSliceWriter(PSliceWriter):
             if q_y:
                 encode_residual(cab, qly, log2_size - 1, 0, 0, self.sdh)
             if cbf_cb and q_cb:
-                encode_residual(cab, qlcb, c_log2, 1, 0, self.sdh)
+                encode_residual(cab, qlcb, c_log2, 1, 0, self.sdh,
+                                transform_skip_enabled=tse)
             if cbf_cr and q_cr:
-                encode_residual(cab, qlcr, c_log2, 2, 0, self.sdh)
+                encode_residual(cab, qlcr, c_log2, 2, 0, self.sdh,
+                                transform_skip_enabled=tse)
 
     def _inter_cu(self, x0: int, y0: int, size: int,
                   log2_size: int) -> None:
@@ -349,12 +354,17 @@ class MdPSliceWriter(PSliceWriter):
         if cbf_cb or cbf_cr:
             cab.encode_bin(ContextSet.idx("cbf_luma", 1), cbf_y)
         c_log2 = log2_size - 1
+        # an 8x8 CU's 4x4 chroma TUs code transform_skip_flag too (spec
+        # 7.3.8.11; the JAX package's writer omits it)
+        tse = bool(self.pps.transform_skip_enabled)
         if cbf_y:
             encode_residual(cab, ly, log2_size, 0, 0, self.sdh)
         if cbf_cb:
-            encode_residual(cab, lcb, c_log2, 1, 0, self.sdh)
+            encode_residual(cab, lcb, c_log2, 1, 0, self.sdh,
+                            transform_skip_enabled=tse)
         if cbf_cr:
-            encode_residual(cab, lcr, c_log2, 2, 0, self.sdh)
+            encode_residual(cab, lcr, c_log2, 2, 0, self.sdh,
+                            transform_skip_enabled=tse)
 
     def _intra_cu(self, x0: int, y0: int, size: int,
                   log2_size: int) -> None:

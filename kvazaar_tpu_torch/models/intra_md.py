@@ -1,10 +1,12 @@
 """Quadtree (CTB 64) all-intra pipeline in PyTorch: CU leaves 64 down to
 NxN (four 4x4 PUs of an 8x8 CU).
 
-Device port of kvazaar_tpu/models/intra_md.py for 8-bit frames with any
-intra PU depth range (--pu-depth-intra 0-4) and the --rd ladder (0-3),
-optionally with deblocking, SAO, RDOQ and sign-data hiding, at one QP a
-frame or (delta_qp: VAQ, ROI, LCU rate control) one QP a CTB.
+Device port of kvazaar_tpu/models/intra_md.py for 8- and 10-bit frames
+(Main and Main 10) with any intra PU depth range (--pu-depth-intra 0-4)
+and the --rd ladder (0-3), optionally with deblocking, SAO, RDOQ and
+sign-data hiding, transform skip, scaling lists, lossless coding
+(transquant bypass) and a --fast-coeff-table rate model, at one QP a frame
+or (delta_qp: VAQ, ROI, LCU rate control) one QP a CTB.
 One frame runs three stages on the pipeline's device:
 
 1. search: every aligned block of every allowed size evaluates all 35
@@ -37,7 +39,10 @@ are bit-exact to the reference's decisions (float32 costs aside, which the
 tests hold to a tolerance) and to the spec for recon and levels.
 
 The search quantises with the plain deadzone rule; the reconstruction
-applies the configured tools (RDOQ, then the sign-hiding parity fix).
+applies the configured tools (RDOQ, then the sign-hiding parity fix) and,
+with transform skip, lets every 4x4 TU (NxN luma, 4x4 chroma) choose the
+shifted residual over the transform on a lower RD cost (the `ts8` map).
+Quantisation runs in the Qp' domain (QP + 6 * (bit depth - 8)).
 RDOQ's float32 costs are formed as the reference's compiled CPU program
 forms them: its summation orders (_xla_sum, _xla_cumsum) and its fused
 multiply-adds (_fma), so the levels match on the CPU and on the card.
@@ -180,6 +185,18 @@ def rdoq_lambda_t(qp: torch.Tensor) -> torch.Tensor:
     return p * float(np.float32(1.5) * np.float32(0.57))
 
 
+def ts_lambda(qp):
+    """The transform-skip competition's float32 lambda 0.57 * 2^((qp - 12)
+    / 3) of the luma QP, formed as rdoq_lambda forms its own (float32(1/3),
+    the power in float64 rounded once); qp an int or an int tensor."""
+    f = float(np.float32(0.57))
+    if isinstance(qp, torch.Tensor):
+        e = (qp.to(F32) - 12.0) * float(np.float32(1 / 3))
+        return torch.pow(2.0, e.to(F64)).to(F32) * f
+    e = np.float32(np.float32(qp) - np.float32(12.0)) * np.float32(1 / 3)
+    return float(np.float32(f) * np.float32(2.0 ** float(e)))
+
+
 # exponents k at which the reference's floor(log2(2^k)) is k - 1 (its
 # compiled log2 is log(x) * float32(1 / ln 2), which lands below k there);
 # the Golomb price of RDOQ keeps the reference's value
@@ -222,19 +239,32 @@ class MdIntraPipeline:
                  rd: int = 0, fast_coeff_table: str = "",
                  trskip: bool = False, device="cuda") -> None:
         assert height % self.CTB == 0 and width % self.CTB == 0
-        for bad, what, entry in (
-                (scaling is not None, "scaling lists",
-                 "the remaining intra variants"),
-                (lossless, "lossless", "the remaining intra variants"),
-                (bit_depth != 8, "10-bit", "the remaining intra variants"),
-                (bool(fast_coeff_table), "--fast-coeff-table",
-                 "the remaining intra variants"),
-                (trskip, "transform skip", "the remaining intra variants")):
-            if bad:
-                raise unsupported(what, entry)
         self.device = torch.device(device)
-        self.bd = 8
-        self.maxv = 255
+        self.bd = bit_depth
+        self.maxv = (1 << bit_depth) - 1
+        # --transform-skip: the RD competition of the shifted residual
+        # against the DST/DCT on every 4x4 TU of the reconstruction
+        self.trskip = bool(trskip) and not lossless
+        # lossless (transquant bypass): the residual is coded as it is;
+        # RDOQ and sign hiding have nothing to act on
+        self.lossless = lossless
+        if lossless:
+            sign_hiding = rdoq = False
+        # scaling lists: per-position quantiser scales and dequantiser
+        # matrices of the intra lists (luma id 0, chroma id 1)
+        self.scaling = scaling
+        # the learned coefficient-rate weights, or --fast-coeff-table's
+        # JSON {log2size: {qp: [8 floats]}}; a size without weights takes
+        # the analytic rate estimate
+        from ..engine.fast_cost_weights import FAST_COST_WEIGHTS
+        self.fast_cost = dict(FAST_COST_WEIGHTS)
+        if fast_coeff_table:
+            import json
+            with open(fast_coeff_table) as f:
+                raw = json.load(f)
+            self.fast_cost = {int(k): {int(q): [float(x) for x in w]
+                                       for q, w in v.items()}
+                              for k, v in raw.items()}
         self.h, self.w, self.qp = height, width, qp
         self.deblock = deblock
         self.deblock_beta = deblock_beta
@@ -281,14 +311,13 @@ class MdIntraPipeline:
                 c["cbf_c0_d1"], c["cbf_c1_d1"], c["chroma_dm"],
                 c["part_2nx2n"], c["part_nxn"]]
 
-    @staticmethod
-    def _fcw_matrix(qp: int) -> list[list[float]]:
-        """Learned coefficient-rate weights at the nearest trained QP,
-        rows by log2(TU size) - 2."""
-        from ..engine.fast_cost_weights import FAST_COST_WEIGHTS
+    def _fcw_matrix(self, qp: int) -> list[list[float]]:
+        """Coefficient-rate weights at the nearest QP of the table, rows
+        by log2(TU size) - 2; a zero row where the table has no weights
+        for the size (the rate then takes the analytic estimate)."""
         rows = []
         for log2s in (2, 3, 4, 5):
-            per_qp = FAST_COST_WEIGHTS.get(log2s)
+            per_qp = self.fast_cost.get(log2s)
             if not per_qp:
                 rows.append([0.0] * 8)
                 continue
@@ -347,7 +376,37 @@ class MdIntraPipeline:
         if self.delta_qp:
             d.update(self.qp_map_arrays(np.full(
                 (self.h // self.CTB, self.w // self.CTB), qp, np.int32)))
+        if self.trskip:
+            d["tsp"] = np.asarray(self._tsp_vec(qp), np.float32)
+        if self.scaling is not None:
+            # Cr's lists (id 2) apart from Cb's (id 1): a --cqmfile may
+            # give them different matrices
+            for n in (4, 8, 16, 32):
+                for sfx, mid in (("", 0), ("c", 1), ("r", 2)):
+                    if sfx and n == 32:
+                        continue
+                    d[f"qt{n}{sfx}"] = np.asarray(
+                        self.scaling.quant_table(n, mid), np.int32)
+                    d[f"dm{n}{sfx}"] = np.asarray(
+                        self.scaling.matrix(n, mid), np.int32)
         return d
+
+    def _tsp_vec(self, qp: int) -> list[float]:
+        """transform_skip_flag fractional-bit prices at context init:
+        [luma 0, luma 1, chroma 0, chroma 1]."""
+        from ..engine.bit_cost import ctx_bits
+        ly = ctx_bits("transform_skip_flag", self.INIT_TYPE, qp, 0)
+        lc = ctx_bits("transform_skip_flag", self.INIT_TYPE, qp, 1)
+        return [ly[0], ly[1], lc[0], lc[1]]
+
+    def _mats_for(self, n: int, is_luma: bool, cr: bool = False):
+        """(quantiser scales [6, n, n], dequantiser matrix [n, n]) of the
+        scaling lists for a luma, Cb or (cr) Cr TU, or None without
+        scaling lists."""
+        if self.scaling is None:
+            return None
+        sfx = "" if is_luma else "r" if cr else "c"
+        return self.c[f"qt{n}{sfx}"], self.c[f"dm{n}{sfx}"]
 
     @staticmethod
     def qp_map_arrays(qm) -> dict:
@@ -453,15 +512,19 @@ class MdIntraPipeline:
         return pred.reshape(refs.shape[0], n * n).to(I32)
 
     def _fix_1026(self, preds, refs, n: int):
-        """Post-filter for pure horizontal/vertical luma modes (n < 32)."""
+        """Post-filter for pure horizontal/vertical luma modes (n < 32) of
+        the search's predictions. It clips at 255 whatever the bit depth,
+        as the reference's search does (kvazaar_tpu/models/
+        intra_pipeline.py:241; ROADMAP.md queue 3); the reconstruction's
+        _pred_one clips at the bit depth's maximum."""
         left = refs[:, :n]
         top = refs[:, 2 * n + 1:3 * n + 1]
         corner = refs[:, 2 * n]
         p = preds.reshape(-1, 35, n, n).clone()
         p[:, 26, :, 0] = (top[:, :1] + ((left - corner[:, None]) >> 1)) \
-            .clamp(0, self.maxv).to(p.dtype)
+            .clamp(0, 255).to(p.dtype)
         p[:, 10, 0, :] = (left[:, :1] + ((top - corner[:, None]) >> 1)) \
-            .clamp(0, self.maxv).to(p.dtype)
+            .clamp(0, 255).to(p.dtype)
         return p.reshape(-1, 35, n * n)
 
     def _preds_full(self, refs, g, f, n: int, is_luma: bool):
@@ -553,11 +616,26 @@ class MdIntraPipeline:
             torch.floor(torch.log2(lasty + 2.0))
         return f1, f2, f3, f4, f5, f6, f7
 
+    @staticmethod
+    def _rate_bins(levels):
+        """Context-free CABAC-bin rate estimate per TU [L, n, n] -> [L]
+        (the model of the RDOQ level rates)."""
+        al = levels.abs().to(F32)
+        r3 = 5.0 + 2.0 * torch.floor(torch.log2((al - 1.0).clamp(min=1.0)))
+        r = torch.where(al == 0, 0.0, torch.where(
+            al == 1, 3.0, torch.where(al == 2, 4.0, r3)))
+        return r.sum(dim=(-1, -2))
+
     def _rate_tu(self, levels, n: int):
         """Coefficient rate of a coded TU (excl. cbf): the learned fast
-        coefficient-cost model."""
+        coefficient-cost model, or, for a size the table has no weights
+        for, an analytic estimate (level bins, last position, in-span
+        significance flags and coded sub-blocks)."""
         f1, f2, f3, f4, f5, f6, f7 = self._tu_features(levels, n)
         log2s = n.bit_length() - 1
+        if not self.fast_cost.get(log2s):
+            r = self._rate_bins(levels) + 0.6 * (f5 - f1) + f6 + f7 + 2.0
+            return r * (f1 > 0)
         w = self.c["fcw"][log2s - 2]
         r = (w[0] + w[1] * f1 + w[2] * f2 + w[3] * f3 + w[4] * f4
              + w[5] * f5 + w[6] * f6 + w[7] * f7)
@@ -580,40 +658,83 @@ class MdIntraPipeline:
                            self.dpc[i0])
 
     def _transform_quant(self, resi, n: int, qp, *, is_luma: bool,
-                         tools: bool, scan_sel=None, dst: bool = False):
+                         tools: bool, scan_sel=None, dst: bool = False,
+                         cr: bool = False):
         """Forward transform + quant + dequant + inverse, exact integer
         arithmetic (the products run in float64, exact far beyond these
         magnitudes; CUDA has no int32 matmul). resi [L, n, n] ->
         (levels, recon_resi) int32. qp: an int, or an int32 tensor [L]
-        of one QP a TU (delta QP). tools: quantise with the configured
-        RDOQ / sign hiding (the reconstruction) instead of the plain
-        deadzone rule (the search); scan_sel [L]: per-TU scan index that
-        sign hiding follows (mode-dependent scans), None for diagonal;
-        dst: the 4x4 DST-VII of intra luma instead of the DCT."""
+        of one QP a TU (delta QP), before the bit depth's QpBdOffset.
+        tools: quantise with the configured RDOQ / sign hiding (the
+        reconstruction) instead of the plain deadzone rule (the search);
+        scan_sel [L]: per-TU scan index that sign hiding follows
+        (mode-dependent scans), None for diagonal; dst: the 4x4 DST-VII
+        of intra luma instead of the DCT; cr: a Cr TU (its own scaling
+        list). Lossless: the residual is its own levels and
+        reconstruction."""
+        if self.lossless:
+            return resi.to(I32), resi.to(I32)
         log2n = int(np.log2(n))
+        bd = self.bd
         t = self._tf64["dst4" if dst else n]
-        shift1 = log2n - 1
+        shift1 = log2n + bd - 9
         shift2 = log2n + 6
         tmp = (t @ resi.to(F64).transpose(1, 2)).to(I32)
         tmp = (tmp + (1 << (shift1 - 1))) >> shift1
         co = (t @ tmp.to(F64).transpose(1, 2)).to(I32)
         co = (co + (1 << (shift2 - 1))) >> shift2
-        tshift = 7 - log2n
+        levels, deq = self._quant_dequant(co, n, qp, is_luma=is_luma,
+                                          tools=tools, scan_sel=scan_sel,
+                                          cr=cr)
+        ishift2 = 20 - bd
+        tmp2 = (t.t() @ deq.to(F64)).to(I32)
+        tmp2 = ((tmp2 + 64) >> 7).clamp(-32768, 32767)
+        r2 = (tmp2.to(F64) @ t).to(I32)
+        r2 = ((r2 + (1 << (ishift2 - 1))) >> ishift2).clamp(-32768, 32767)
+        return levels, r2
+
+    def _transform_quant_skip(self, resi, qp, *, is_luma: bool,
+                              tools: bool, scan_sel=None, cr: bool = False):
+        """transform_skip T/Q/IT of 4x4 TUs (kvazaar transform.c:163-196):
+        the residual shifted into the coefficient range instead of the
+        transform, the quantiser and dequantiser as in _transform_quant
+        (RDOQ and sign hiding included), then the shift back. Returns
+        (levels, recon_resi) int32 [L, 4, 4]."""
+        tshift = 15 - self.bd - 2
+        co = resi.to(I32) << tshift
+        levels, deq = self._quant_dequant(co, 4, qp, is_luma=is_luma,
+                                          tools=tools, scan_sel=scan_sel,
+                                          cr=cr)
+        r2 = (deq + (1 << (tshift - 1))) >> tshift
+        return levels, r2.clamp(-32768, 32767)
+
+    def _quant_dequant(self, co, n: int, qp, *, is_luma: bool, tools: bool,
+                       scan_sel=None, cr: bool = False):
+        """Quantise the coefficients co [L, n, n] int32 in the Qp' domain
+        (qp + QpBdOffset, spec 8.6.3), with the scaling lists' scale per
+        position when on, then dequantise; the dequantised coefficients are
+        clipped to 16 bits. Returns (levels, dequantised) int32."""
+        log2n = int(np.log2(n))
+        bd = self.bd
+        mats = self._mats_for(n, is_luma, cr)
+        tshift = 15 - bd - log2n
         if isinstance(qp, torch.Tensor):
             # one QP a TU: int32 [L, 1, 1] factors, as the reference's
-            qb = qp.to(I32)[:, None, None]
+            qb = qp.to(I32)[:, None, None] + 6 * (bd - 8)
             qbits = 14 + qb // 6 + tshift
-            scale = self._qtab(QUANT_SCALES)[qb % 6]
-            dscale = self._qtab(INV_QUANT_SCALES)[qb % 6] << (qb // 6)
+            ils = self._qtab(INV_QUANT_SCALES)[qb % 6]
             one = torch.ones_like(qbits)
-            qp = qb
+            scale = (self._qtab(QUANT_SCALES)[qb % 6] if mats is None
+                     else mats[0][qb[:, 0, 0].long() % 6])
         else:
-            qbits = 14 + qp // 6 + tshift
-            scale = int(QUANT_SCALES[qp % 6])
-            dscale = int(INV_QUANT_SCALES[qp % 6]) << (qp // 6)
+            qb = qp + 6 * (bd - 8)
+            qbits = 14 + qb // 6 + tshift
+            ils = int(INV_QUANT_SCALES[qb % 6])
             one = 1
+            scale = (int(QUANT_SCALES[qb % 6]) if mats is None
+                     else mats[0][qb % 6])
         if tools and self.rdoq:
-            levels = self._rdoq_levels(co, scale, qbits, qp, log2n, is_luma)
+            levels = self._rdoq_levels(co, scale, qbits, qb, log2n, is_luma)
         else:
             offset = 171 << (qbits - 9)
             absq = (co.abs() * scale + offset) >> qbits
@@ -621,14 +742,53 @@ class MdIntraPipeline:
         if tools and self.sign_hiding:
             err = co.abs() * scale - (levels.abs() << qbits)
             levels = self._sdh_fix(levels, n, err, one << qbits, scan_sel)
-        dshift = log2n - 1
-        deq = ((levels * dscale + (1 << (dshift - 1))) >> dshift) \
-            .clamp(-32768, 32767)
-        tmp2 = (t.t() @ deq.to(F64)).to(I32)
-        tmp2 = ((tmp2 + 64) >> 7).clamp(-32768, 32767)
-        r2 = (tmp2.to(F64) @ t).to(I32)
-        r2 = ((r2 + (1 << 11)) >> 12).clamp(-32768, 32767)
-        return levels, r2
+        if mats is None:
+            dshift = bd + log2n - 9
+            deq = (levels * (ils << (qb // 6)) + (1 << (dshift - 1))) \
+                >> dshift
+        else:
+            # spec 8.6.3 with m: (level * m * ls << qp/6 + rnd) >> bdShift,
+            # the left shift folded into the right one (exact), and the
+            # product clipped where the fold turns into a left shift (the
+            # final clip absorbs it): int32 as the reference's, and
+            # |level * m * ls| <= 2^15 * 255 * 72 < 2^31
+            x = levels * mats[1] * ils
+            s_fold = bd + log2n - 5 - qb // 6
+            if isinstance(s_fold, torch.Tensor):
+                pos = s_fold.clamp(min=0)
+                bias = torch.where(pos > 0, 1 << (pos - 1).clamp(min=0), 0)
+                deq = torch.where(s_fold > 0, (x + bias) >> pos,
+                                  x.clamp(-40000, 40000)
+                                  << (-s_fold).clamp(min=0))
+            elif s_fold > 0:
+                deq = (x + (1 << (s_fold - 1))) >> s_fold
+            else:
+                deq = x.clamp(-40000, 40000) << -s_fold
+        return levels, deq.clamp(-32768, 32767).to(I32)
+
+    def _tq_4x4_rd(self, resi, qp, lam, *, is_luma: bool, scan_sel=None,
+                   dst: bool = False, cr: bool = False):
+        """4x4 T/Q/IT of the reconstruction with the transform-skip RD
+        competition (kvazaar search_intra.c:94-152, made exact: both
+        paths quantised and priced): skip wins on a strictly lower D +
+        lam * (R + transform_skip_flag price), never on a TU whose skip
+        levels are all zero (no flag is coded there). lam: float32, a
+        scalar or [L]. Returns (levels, recon_resi, use_skip [L] bool)."""
+        levels, r2 = self._transform_quant(resi, 4, qp, is_luma=is_luma,
+                                           tools=True, scan_sel=scan_sel,
+                                           dst=dst, cr=cr)
+        lv_s, r2_s = self._transform_quant_skip(resi, qp, is_luma=is_luma,
+                                                tools=True,
+                                                scan_sel=scan_sel, cr=cr)
+        d_t = self._sqsum(resi - r2)
+        d_s = self._sqsum(resi - r2_s)
+        tsp = self.c["tsp"]
+        p0, p1 = (tsp[0], tsp[1]) if is_luma else (tsp[2], tsp[3])
+        c_t = d_t + lam * (self._rate_tu(levels, 4) + p0)
+        c_s = d_s + lam * (self._rate_tu(lv_s, 4) + p1)
+        use = (c_s < c_t) & (lv_s != 0).any(dim=-1).any(dim=-1)
+        u3 = use[:, None, None]
+        return torch.where(u3, lv_s, levels), torch.where(u3, r2_s, r2), use
 
     # ------------------------------------------------------------------
     # quantisation tools: RDOQ and the sign-hiding parity fix
@@ -672,10 +832,12 @@ class MdIntraPipeline:
            in-span costs before it and pure distortion after it, and the
            all-zero option;
         3. the coded-sub-block zeroing pass.
-        co [L, n, n] int32 -> levels [L, n, n] int32. scale, qbits and qp
-        are ints, or (one QP a TU) int32 tensors [L, 1, 1]: the lambda
+        co [L, n, n] int32 -> levels [L, n, n] int32. qp is the Qp'
+        (QpBdOffset included) that the lambda follows; scale, qbits and
+        qp are ints, or (one QP a TU) int32 tensors [L, 1, 1]: the lambda
         then follows each TU's QP, the context-init prices stay the
-        slice's."""
+        slice's. With scaling lists scale is per position ([n, n], or
+        [L, n, n])."""
         n = 1 << log2n
         L = co.shape[0]
         c = self.c
@@ -685,13 +847,15 @@ class MdIntraPipeline:
             lf = (absco * scale + (torch.ones_like(qbits) << (qbits - 1))) \
                 >> qbits
             lamb = rdoq_lambda_t(qp)
-            sf = scale.to(F32)
-            inv = 1.0 / (sf * sf * float(four))
             lamb2 = lamb.reshape(L, 1)
         else:
             lf = (absco * scale + (1 << (qbits - 1))) >> qbits
             lamb = lamb2 = rdoq_lambda(qp)
-            # pixel-SSE currency: scaled-domain err^2 / (scale^2 * 4^shift)
+        # pixel-SSE currency: scaled-domain err^2 / (scale^2 * 4^shift)
+        if isinstance(scale, torch.Tensor):
+            sf = scale.to(F32)
+            inv = 1.0 / (sf * sf * float(four))
+        else:
             sf = np.float32(scale)
             inv = float(np.float32(1.0) / (sf * sf * four))
 
@@ -944,12 +1108,13 @@ class MdIntraPipeline:
         factor, plus lambda times its rate at trafo depth 0 or 1. qp_c
         and lam: scalars, or one a block under delta QP."""
         gc, _ = self._gf(nc, False)
-        for plane in (src_cb, src_cr):
+        for i, plane in enumerate((src_cb, src_cr)):
             cpred = self._pred_one(self._src_refs(plane, nc), modes, gc, gc,
                                    nc, False)
             cresi = self._blocks(plane, nc) - cpred.reshape(-1, nc, nc)
             clev, cr2 = self._transform_quant(cresi, nc, qp_c,
-                                              is_luma=False, tools=False)
+                                              is_luma=False, tools=False,
+                                              cr=i == 1)
             acc = acc + self._sqsum(cresi - cr2) \
                 * (1 + self.REF_NOISE_K / nc) \
                 + lam * self._tu_rate_c(clev, nc, depth1=depth1)
@@ -1265,10 +1430,13 @@ class MdIntraPipeline:
         return torch.cat([left, corner[:, None], top, pad], dim=1)
 
     def _tu_apply(self, plane, srcb, n: int, cell_px: int, y0, x0,
-                  has_left, has_top, nbl, ntr, modes, qp, is_luma: bool):
+                  has_left, has_top, nbl, ntr, modes, qp, is_luma: bool,
+                  lam_ts=None, cr: bool = False):
         """Predict, transform and reconstruct one TU per slot from the
         reconstructed plane (padded, +1 offset); qp: an int, or one a
-        slot under delta QP. Returns (recon, levels) [L, n, n]."""
+        slot under delta QP; lam_ts: the transform-skip competition's
+        lambda (4x4 TUs compete when it is given); cr: a Cr TU. Returns
+        (recon, levels, use_skip [L] bool or None) [L, n, n]."""
         ar = self._arange(2 * n)
         left_raw = plane[1 + y0[:, None] + ar[None, :], x0[:, None]]
         top_raw = plane[y0[:, None], 1 + x0[:, None] + ar[None, :]]
@@ -1285,12 +1453,19 @@ class MdIntraPipeline:
             scan_sel = torch.where((modes >= 6) & (modes <= 14), SCAN_VER,
                                    torch.where((modes >= 22) & (modes <= 30),
                                                SCAN_HOR, SCAN_DIAG))
-        levels, r2 = self._transform_quant(resi, n, qp, is_luma=is_luma,
-                                           tools=True, scan_sel=scan_sel,
-                                           dst=is_luma and n == 4)
+        ts = None
+        if lam_ts is not None and n == 4:
+            levels, r2, ts = self._tq_4x4_rd(resi, qp, lam_ts,
+                                             is_luma=is_luma,
+                                             scan_sel=scan_sel, dst=is_luma,
+                                             cr=cr)
+        else:
+            levels, r2 = self._transform_quant(resi, n, qp, is_luma=is_luma,
+                                               tools=True, scan_sel=scan_sel,
+                                               dst=is_luma and n == 4, cr=cr)
         cbf = (levels != 0).any(dim=-1).any(dim=-1)[:, None, None]
         rec = (pred + torch.where(cbf, r2, 0)).clamp(0, self.maxv)
-        return rec, torch.where(cbf, levels, 0)
+        return rec, torch.where(cbf, levels, 0), ts
 
     def _put(self, plane, y0, x0, n: int, blk, valid) -> None:
         """Write [L, n, n] blocks at (y0, x0) (+1 offset) where valid."""
@@ -1300,9 +1475,12 @@ class MdIntraPipeline:
         plane[yy, xx] = torch.where(valid[:, None, None], blk.to(plane.dtype),
                                     plane[yy, xx])
 
-    def _fire_class(self, luma, chroma, s: int, c_star, valid, st, pre):
+    def _fire_class(self, luma, chroma, s: int, c_star, valid, st, pre,
+                    ts8=None):
         """Reconstruct the fired TUs of size s (slot r fires class column
-        c_star[r] where valid) into the planes, in place."""
+        c_star[r] where valid) into the planes, in place. ts8 [r8, c8, 6]
+        int8: with transform skip, where the 8-class slots write their
+        cells' skip bits (the four NxN luma sub-TUs in z order, Cb, Cr)."""
         k = s // 8
         rs, cs = self.r8 // k, self.c8 // k
         r = self._arange(rs)
@@ -1317,9 +1495,12 @@ class MdIntraPipeline:
         qp_y, qp_c = self.qp_y, self.qp_c
         if "qpy" in pre:
             qp_y, qp_c = pre["qpy"][r, c], pre["qpc"][r, c]
-        rb, lb = self._tu_apply(luma[0], pre["by"][bidx], s, 8, y0, x0,
-                                has_left, has_top, nbl, ntr, modes, qp_y,
-                                True)
+        # the skip competition prices with the luma QP's lambda on luma
+        # and chroma TUs alike, as the reference's
+        lam_ts = ts_lambda(qp_y) if ts8 is not None and s == 8 else None
+        rb, lb, _ = self._tu_apply(luma[0], pre["by"][bidx], s, 8, y0, x0,
+                                   has_left, has_top, nbl, ntr, modes, qp_y,
+                                   True)
         nxn = None
         if "nxn" in pre:
             nxn = valid & pre["nxn"][r, c]
@@ -1328,19 +1509,33 @@ class MdIntraPipeline:
             valid_2n = valid
         self._put(luma[0], y0, x0, s, rb, valid_2n)
         self._put(luma[1], y0, x0, s, lb, valid_2n)
+        ts_y = None
         if nxn is not None:
-            self._nxn_apply(luma, pre["by"][bidx], y0, x0, has_left,
-                            has_top, nbl, ntr, pre["modes4"][r, c], nxn, qp_y)
+            ts_y = self._nxn_apply(luma, pre["by"][bidx], y0, x0, has_left,
+                                   has_top, nbl, ntr, pre["modes4"][r, c],
+                                   nxn, qp_y, lam_ts)
         sc = s // 2
+        ts_c = []
         for i, key in enumerate(("bcb", "bcr")):
-            rb, lb = self._tu_apply(chroma[i], pre[key][bidx], sc, 4,
-                                    r * sc, c * sc, has_left, has_top, nbl,
-                                    ntr, modes, qp_c, False)
+            rb, lb, ts = self._tu_apply(chroma[i], pre[key][bidx], sc, 4,
+                                        r * sc, c * sc, has_left, has_top,
+                                        nbl, ntr, modes, qp_c, False, lam_ts,
+                                        cr=i == 1)
             self._put(chroma[i], r * sc, c * sc, sc, rb, valid)
             self._put(chroma[2 + i], r * sc, c * sc, sc, lb, valid)
+            ts_c.append(ts)
+        if ts8 is not None and s == 8:
+            if ts_y is None:
+                ts_y = torch.zeros((rs, 4), dtype=torch.bool,
+                                   device=self.device)
+            else:
+                ts_y = ts_y & nxn[:, None]
+            bits = torch.cat([ts_y, ts_c[0][:, None], ts_c[1][:, None]],
+                             dim=1).to(ts8.dtype)
+            ts8[r, c] = torch.where(valid[:, None], bits, ts8[r, c])
 
     def _nxn_apply(self, luma, src8, y0, x0, has_left, has_top, nbl, ntr,
-                   modes4, nxn, qp_y) -> None:
+                   modes4, nxn, qp_y, lam_ts=None):
         """Reconstruct the four 4x4 luma TUs of the NxN cells nxn [L] of
         the fired 8-class slots into the planes, one after another in z
         order: each predicts from the plane, its neighbours in the cell
@@ -1348,7 +1543,9 @@ class MdIntraPipeline:
         8.4.4.2.2): sub-TU 1 has no below-left and the cell's first
         top-right cell, sub-TU 2 the cell's first below-left cell and
         sub-TU 1 as top-right, sub-TU 3 neither. modes4 [L, 4] in z
-        order; qp_y: the slots' luma QP (an int, or [L])."""
+        order; qp_y: the slots' luma QP (an int, or [L]); lam_ts: the
+        transform-skip lambda, or None. Returns the sub-TUs' skip bits
+        [L, 4] (with lam_ts), else None."""
         one = torch.ones_like(has_left)
         zero = torch.zeros_like(nbl)
         nb1, nt1 = nbl.clamp(max=1), ntr.clamp(max=1)
@@ -1357,13 +1554,16 @@ class MdIntraPipeline:
                  (one, has_top, zero, nt1),
                  (has_left, one, nb1, zero + 1),
                  (one, one, zero, zero))
+        tss = []
         for i, (dy, dx) in enumerate(((0, 0), (0, 4), (4, 0), (4, 4))):
             hl, ht, nb, nt = avail[i]
-            rb, lb = self._tu_apply(luma[0], src8[:, dy:dy + 4, dx:dx + 4],
-                                    4, 4, y0 + dy, x0 + dx, hl, ht, nb, nt,
-                                    modes4[:, i], qp_y, True)
+            rb, lb, ts = self._tu_apply(
+                luma[0], src8[:, dy:dy + 4, dx:dx + 4], 4, 4, y0 + dy,
+                x0 + dx, hl, ht, nb, nt, modes4[:, i], qp_y, True, lam_ts)
             self._put(luma[0], y0 + dy, x0 + dx, 4, rb, nxn)
             self._put(luma[1], y0 + dy, x0 + dx, 4, lb, nxn)
+            tss.append(ts)
+        return None if lam_ts is None else torch.stack(tss, dim=1)
 
     def _new_planes(self):
         h, w = self.h, self.w
@@ -1376,7 +1576,7 @@ class MdIntraPipeline:
         return luma, chroma, written
 
     def _recon_md(self, src_y, src_cb, src_cr, size_map8, mode_map8,
-                  init_state=None, exclude8=None, mode_map4=None):
+                  init_state=None, exclude8=None, mode_map4=None, ts8=None):
         """Self-scheduled recon. init_state: optional pre-written
         (luma [2, Hp, Wp], chroma [4, Hc, Wc], written8) planes in the
         +1-offset layout (the inter path reconstructs its leaves first);
@@ -1384,7 +1584,10 @@ class MdIntraPipeline:
         mode_map4: the per-4x4 PU modes of the NxN cells (size code 4).
         A 64 leaf reconstructs as four 32 TUs of one mode, so it fires as
         four 32 leaves; an NxN cell fires as an 8 leaf that waits for
-        every neighbour region its four modes might read.
+        every neighbour region its four modes might read. ts8: an int8
+        [r8, c8, 6] zeros tensor to run the transform-skip competition on
+        the 4x4 TUs and collect each 8x8 cell's skip bits (the four NxN
+        luma sub-TUs in z order, Cb, Cr) into; None runs without it.
         Returns (luma, chroma, written, n_waves)."""
         nxn8 = None
         if mode_map4 is not None and self.allow[4]:
@@ -1422,11 +1625,15 @@ class MdIntraPipeline:
                     [m4[0::2, 0::2], m4[0::2, 1::2], m4[1::2, 0::2],
                      m4[1::2, 1::2]], dim=-1)
             statics[s] = st
-        cap = 3 * self.r8 + 2 * self.c8 + 64
+        # every wave fires a TU until the frame is written, so the 8x8
+        # cells bound the waves (the reference stops at 3 * r8 + 2 * c8 +
+        # 64 waves, which NxN-heavy frames need more than: ROADMAP.md
+        # queue 3); a check window without a fire is a stall
+        cap = self.r8 * self.c8
         n_waves = torch.zeros((), dtype=torch.int64, device=self.device)
         wave = 0
         done = bool(written.all())
-        while not done and wave < cap:
+        while not done:
             for _ in range(self.WAVE_CHECK):
                 new_written = written.clone()
                 fired_any = torch.zeros((), dtype=torch.bool,
@@ -1445,13 +1652,15 @@ class MdIntraPipeline:
                         rs, k, cs, k).reshape(self.r8, self.c8)
                     fired_any = fired_any | row_has.any()
                     self._fire_class(luma, chroma, s, c_star, row_has,
-                                     statics[s], pres[s])
+                                     statics[s], pres[s], ts8)
                 written = new_written
                 wave += 1
                 n_waves = torch.where(fired_any, wave, n_waves)
-                if wave >= cap:
-                    break
-            done = bool(written.all())
+            done, last = torch.stack([written.all().to(torch.int64),
+                                      n_waves]).tolist()
+            if not done and (wave - last >= self.WAVE_CHECK or wave >= cap):
+                raise RuntimeError(f"the wavefront stalled after {last} "
+                                   "waves with cells left unwritten")
         return luma, chroma, written, n_waves
 
     # ------------------------------------------------------------------
@@ -1541,16 +1750,21 @@ class MdIntraPipeline:
                                                rcb, rcr)
 
         def cksum(plane, mask):
-            return ((plane.to(torch.int64) & 0xFF) ^ mask).sum() & 0xFFFFFFFF
+            p64 = plane.to(torch.int64)
+            tot = ((p64 & 0xFF) ^ mask).sum()
+            if self.bd > 8:
+                tot = tot + ((p64 >> 8) ^ mask).sum()
+            return tot & 0xFFFFFFFF
 
         def sse(a, b):
             d = (a - b).to(torch.int64)
             return (d * d).sum()
 
+        pix = torch.uint8 if self.bd == 8 else torch.uint16
         return {**sao_maps,
-            "rec_y": ry.to(torch.uint8),
-            "rec_cb": rcb.to(torch.uint8),
-            "rec_cr": rcr.to(torch.uint8),
+            "rec_y": ry.to(pix),
+            "rec_cb": rcb.to(pix),
+            "rec_cr": rcr.to(pix),
             "levels_y": lvl_y.to(torch.int16),
             "levels_cb": lvl_cb.to(torch.int16),
             "levels_cr": lvl_cr.to(torch.int16),
@@ -1561,15 +1775,17 @@ class MdIntraPipeline:
                                 sse(rcr, src_cr)]),
         }
 
-    def _full_impl(self, src_y_u8, src_cb_u8, src_cr_u8) -> dict:
-        src_y = src_y_u8.to(I32)
-        src_cb = src_cb_u8.to(I32)
-        src_cr = src_cr_u8.to(I32)
+    def _full_impl(self, src_y_in, src_cb_in, src_cr_in) -> dict:
+        src_y = src_y_in.to(I32)
+        src_cb = src_cb_in.to(I32)
+        src_cr = src_cr_in.to(I32)
         size_map8, mode_map8, mode_map4 = self._partition(src_y, src_cb,
                                                           src_cr)
+        ts8 = (torch.zeros((self.r8, self.c8, 6), dtype=torch.int8,
+                           device=self.device) if self.trskip else None)
         luma, chroma, _, n_waves = self._recon_md(
             src_y, src_cb, src_cr, size_map8, mode_map8,
-            mode_map4=mode_map4)
+            mode_map4=mode_map4, ts8=ts8)
         ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(luma,
                                                                   chroma)
         fq = (self._final_qp(lvl_y, lvl_cb, lvl_cr) if self.delta_qp
@@ -1584,6 +1800,8 @@ class MdIntraPipeline:
                    mode_map4=mode_map4.to(torch.int8), n_waves=n_waves)
         if fq is not None:
             out["qp_ctb"] = fq.to(torch.int8)
+        if ts8 is not None:
+            out["ts8"] = ts8
         return out
 
     # ------------------------------------------------------------------
@@ -1591,9 +1809,14 @@ class MdIntraPipeline:
     # ------------------------------------------------------------------
 
     def _to_dev(self, a) -> torch.Tensor:
+        """A source plane on the device; 16-bit samples widen to int32 on
+        the host (torch's uint16 arithmetic is thin)."""
         if isinstance(a, torch.Tensor):
             return a.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            a = a.astype(np.int32)
+        return torch.from_numpy(a).to(self.device)
 
     @torch.inference_mode()
     def submit(self, src_y, src_cb, src_cr, qp: int | None = None,

@@ -37,6 +37,49 @@ def test_consts_match_jax(jcls, pcls, kw, qp):
         assert torch.equal(conv[k], v), k
 
 
+def _variant_kw(name: str, scaling_mod):
+    """Pipeline options of a variant, with `scaling_mod`'s ScalingLists
+    (each package its own)."""
+    import os
+    fct = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_fct_table.json")
+    return {"trskip": dict(trskip=True),
+            "scaling": dict(scaling=scaling_mod.ScalingLists()),
+            "cqm": dict(scaling=scaling_mod.load_cqmfile(fct.replace(
+                "torch_fct_table.json", "torch_cqm.txt"))),
+            "fct": dict(fast_coeff_table=fct),
+            "main10": dict(bit_depth=10)}[name]
+
+
+@pytest.mark.parametrize("qp", [22, 37])
+@pytest.mark.parametrize("name", ["trskip", "scaling", "cqm", "fct",
+                                  "main10"])
+def test_variant_consts_match_jax(name, qp):
+    """The transform-skip flag prices `tsp`, the scaling lists' quantiser
+    and dequantiser tables (`qt<n>`, `dm<n>`, chroma `qt<n>c`, `dm<n>c`)
+    and a --fast-coeff-table's weights `fcw` equal the JAX pipeline's."""
+    import kvazaar_tpu.hevc.scaling as jscaling
+    import kvazaar_tpu_torch.hevc.scaling as pscaling
+    jp = JaxIntra(64, 128, qp, **_variant_kw(name, jscaling))
+    pp = MdIntraPipeline(64, 128, qp, device="cpu",
+                         **_variant_kw(name, pscaling))
+    conv = consts_from_numpy(jp.consts, "cpu")
+    # the port keeps Cr's scaling lists apart (qt<n>r, dm<n>r); the JAX
+    # package quantises Cr with Cb's
+    own = {f"{t}{n}r" for t in ("qt", "dm") for n in (4, 8, 16)}
+    assert set(pp.consts) - own <= set(conv)
+    want = {"trskip": {"tsp"}, "fct": {"fcw"}, "main10": set(),
+            "scaling": {f"{t}{n}{c}" for t in ("qt", "dm")
+                        for n in (4, 8, 16, 32) for c in ("", "c")
+                        if not (c and n == 32)}}
+    assert want.get(name, want["scaling"]) <= set(pp.consts)
+    for k, v in pp.consts.items():
+        # Cr's lists equal Cb's in the default lists and the test file
+        ref = conv[k[:-1] + "c" if k in own else k]
+        assert ref.dtype == v.dtype, k
+        assert torch.equal(ref, v), k
+
+
 def test_consts_change_with_qp():
     pp = MdInterPipeline(64, 128, 22, device="cpu")
     a, b = pp._consts_for(22), pp._consts_for(37)

@@ -12,9 +12,10 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (GOP8, GOP_OBA, INTRA_LEAVES, LCU_OBA,  # noqa
                         LOWDELAY, OPEN_GOP, P_SMP, SMOKE_ROI, TOOL_LDB,
-                        TOOL_ROW, VAQ_ROI, WPP_RC, compare_devices,
-                        kernel_errors, kernel_inputs, leaf_frames,
-                        mixed_frames, split_motion_frames, tie_inputs,
+                        TOOL_ROW, TRSKIP_FCT, VAQ_ROI, VARIANTS_416, WPP_RC,
+                        compare_devices, kernel_errors, kernel_inputs,
+                        leaf_frames, main10_frames, mixed_frames,
+                        screen_frames, split_motion_frames, tie_inputs,
                         tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
@@ -236,3 +237,31 @@ def test_cuda_wpp_rc_delta_qp_equal_cpu(name, tmp_path):
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == n and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [v[0] for v in VARIANTS_416]
+                         + ["trskip_fct"])
+def test_cuda_intra_variants_equal_cpu(name):
+    """Transform skip (IDR + 2 B), Main 10 with the tool row, a --cqmfile
+    and lossless coding (chip_smoke.py's VARIANTS_416), and transform
+    skip with NxN leaves and the --fast-coeff-table of phase 12 (i) on
+    screen content, give the CPU path's streams and maps on the GPU at
+    128x64 and decode hash-exactly; the lossless reconstruction is the
+    source."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    if name == "trskip_fct":
+        cfg, frames = TRSKIP_FCT, screen_frames(3, W, H)
+    else:
+        _, cfg, kind, n = {v[0]: v for v in VARIANTS_416}[name]
+        frames = (main10_frames(n, W, H) if kind == "main10"
+                  else mixed_frames(n, W, H))
+    stream, rows = compare_devices(frames, W, H, **cfg)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == len(frames) and all(p.hash_ok for p in pics)
+    if name == "lossless":
+        for p, f in zip(pics, frames):
+            for a, b in zip(p.planes, f):
+                np.testing.assert_array_equal(a, b)

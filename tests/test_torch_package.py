@@ -81,17 +81,19 @@ def test_encoder_targets_cuda_by_default():
 
 
 UNSUPPORTED = {
-    "main10": dict(input_bitdepth=10), "trskip": dict(trskip_enable=True),
-    "lossless": dict(lossless=True),
-    "scaling": dict(scaling_list="default"), "tiles": dict(tiles=(2, 1)),
-    "ctu16": dict(ctu_size=16),
+    "crypto": dict(crypto="on"), "field": dict(source_scan_type="tff"),
+    "tiles": dict(tiles=(2, 1)), "ctu16": dict(ctu_size=16),
 }
+DATA = os.path.join(ROOT, "tests", "data")
+CQM = os.path.join(DATA, "torch_cqm.txt")
+FCT = os.path.join(DATA, "torch_fct_table.json")
 
 
 # option sets (CLI flag, value) on which both encoders are built at
 # 128x64: the port raises where the JAX package raises (with the same
 # exception type) and otherwise writes its VPS, SPS and PPS. "<roi>" is
-# replaced by a ROI map file.
+# replaced by a ROI map file; a name that Config.parse does not know is a
+# Config field set as it is (the bit depth, SAO).
 OPTION_SETS = {
     "default": (),
     "wpp": (("wpp", "1"),),
@@ -122,6 +124,19 @@ OPTION_SETS = {
     "gop8_p1": (("gop", "8"), ("period", "1")),
     "gop4_wpp_slices_oba": (("gop", "4"), ("wpp", "1"), ("slices", "wpp"),
                             ("bitrate", "500000"), ("rc-algorithm", "oba")),
+    "main10": (("input_bitdepth", 10),),
+    "main10_gop8": (("input_bitdepth", 10), ("gop", "8")),
+    "main10_smp": (("input_bitdepth", 10), ("smp", "1")),
+    "main10_vaq": (("input_bitdepth", 10), ("vaq", "4")),
+    "lossless": (("lossless", "1"),),
+    "lossless_sao": (("lossless", "1"), ("sao_type", "full"),
+                     ("rdoq", "1"), ("signhide", "1")),
+    "scaling_default": (("scaling-list", "default"),),
+    "cqmfile": (("scaling-list", "custom"), ("cqmfile", CQM)),
+    "scaling_gop8": (("scaling-list", "default"), ("gop", "8")),
+    "trskip": (("transform-skip", "1"),),
+    "trskip_tiles": (("transform-skip", "1"), ("tiles", "2x1")),
+    "fct": (("fast-coeff-table", FCT),),
 }
 
 
@@ -130,7 +145,10 @@ def _build(cfg_mod, api_mod, opts, roi, **kw):
     parameter sets, or the exception its constructor raised."""
     cfg = cfg_mod.Config(width=128, height=64)
     for name, value in opts:
-        cfg.parse(name, roi if value == "<roi>" else value)
+        if name in cfg._OPTION_MAP:
+            cfg.parse(name, roi if value == "<roi>" else value)
+        else:
+            setattr(cfg, name, value)
     try:
         enc = api_mod.Encoder(cfg, **kw)
     except Exception as e:      # compared with the other package's
@@ -180,19 +198,27 @@ TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),
          "nxn": dict(pu_depth_intra=(1, 4)),
          "intra64": dict(pu_depth_intra=(0, 3)), "rd2": dict(rd=2),
          "subme2": dict(subme=2), "pu_depth_inter_1_2":
-         dict(pu_depth_inter=(1, 2))}
+         dict(pu_depth_inter=(1, 2)),
+         "trskip": dict(trskip_enable=True, pu_depth_intra=(1, 4)),
+         "fct": dict(fast_coeff_table=FCT),
+         "main10": dict(input_bitdepth=10),
+         "scaling": dict(scaling_list="default"),
+         "cqmfile": dict(cqmfile=CQM),
+         "lossless": dict(lossless=True)}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_options_encode_and_decode(name):
     """Each option of the tool row, two references a list, the low-delay
     GOP, the P program (--no-bipred), SMP/AMP, the B pyramid (closed
-    and open GOP), NxN and 64 intra leaves, the rd ladder, --subme and an
-    inter depth range build on cuda unless the CPU is asked for, and encode
-    IDR + B (P with --no-bipred, and in a pyramid, whose one-frame tail
-    is a P anchor; --smp/--amp change only the SPS under bi-prediction)
-    at 128x64 on the CPU (both pipelines), hash-exact in the port's
-    decoder."""
+    and open GOP), NxN and 64 intra leaves, the rd ladder, --subme, an
+    inter depth range, transform skip, --fast-coeff-table, 10-bit,
+    scaling lists (default and --cqmfile) and lossless build on cuda
+    unless the CPU is asked for, and encode IDR + B (P with --no-bipred,
+    and in a pyramid, whose one-frame tail is a P anchor; --smp/--amp
+    change only the SPS under bi-prediction; two intra frames with
+    10-bit, scaling lists and lossless) at 128x64 on the CPU (both
+    pipelines), hash-exact in the port's decoder."""
     from kvazaar_tpu_torch.api import Encoder, encode_sequence
     from kvazaar_tpu_torch.cfg import Config
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
@@ -201,9 +227,11 @@ def test_tool_options_encode_and_decode(name):
         with pytest.raises(RuntimeError, match="CUDA"):
             Encoder(cfg)
     rng = np.random.RandomState(3)
-    frames = [(rng.randint(0, 256, (64, 128)).astype(np.uint8),
-               rng.randint(0, 256, (32, 64)).astype(np.uint8),
-               rng.randint(0, 256, (32, 64)).astype(np.uint8))]
+    top, dt = 1 << cfg.input_bitdepth, (np.uint8 if cfg.input_bitdepth == 8
+                                        else np.uint16)
+    frames = [(rng.randint(0, top, (64, 128)).astype(dt),
+               rng.randint(0, top, (32, 64)).astype(dt),
+               rng.randint(0, top, (32, 64)).astype(dt))]
     frames.append(tuple(np.roll(p, 2, axis=1) for p in frames[0]))
     n_threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -212,8 +240,10 @@ def test_tool_options_encode_and_decode(name):
     finally:
         torch.set_num_threads(n_threads)
     pyramid = cfg.gop_len > 1 and not cfg.gop_lowdelay
+    intra = (cfg.input_bitdepth != 8 or cfg.lossless
+             or cfg.scaling_list != "off")
     assert [i["slice_type"] for i in infos] == [
-        2, 0 if cfg.bipred and not pyramid else 1]
+        2, 2 if intra else 0 if cfg.bipred and not pyramid else 1]
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
 

@@ -69,11 +69,26 @@ at 192x128 (3x2 CTBs):
   capi.py with owf = 2;
 - the intra stages under the non-uniform QP map STAGE_QPMAP
   (`dq_leaf*`, `dq_part_*`, `dq_rec_*`) and the final-QP chain with
-  and without WPP on level planes of DQ_LEVEL_SEED (`dq_fq*`).
+  and without WPP on level planes of DQ_LEVEL_SEED (`dq_fq*`);
+
+and in tests/data/torch_golden_variants.npz, the remaining intra
+variants (transform skip, --fast-coeff-table, Main 10, scaling lists,
+lossless) at 128x64:
+
+- per VARIANT_CONFIGS entry the stream and every coded frame's maps
+  (`ts8` included with transform skip), through encode_sequence; the
+  --fast-coeff-table and --cqmfile inputs are the committed
+  tests/data/torch_fct_table.json and tests/data/torch_cqm.txt
+  (write_fct_table, write_cqm_file);
+- the stages (`tq10_*`, `sdq*`, `tqs*`, `tqrd*`, `leaf10_*`,
+  `part10_*`): _transform_quant at 10-bit, the scaled dequant up to its
+  int32 fold, _transform_quant_skip, the transform-skip RD competition
+  _tq_4x4_rd, and the 10-bit leaf costs and partition.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p|gop|presets|rc] (every file when no argument is
-given).
+[slice|tools|lowdelay|p|gop|presets|rc|variants] (every file when no
+argument is given); `variants <part> ...` re-runs those parts and merges
+them into the file.
 """
 from __future__ import annotations
 
@@ -95,6 +110,10 @@ OUT_GOP = os.path.join(ROOT, "tests", "data", "torch_golden_gop.npz")
 OUT_PRESETS = os.path.join(ROOT, "tests", "data",
                            "torch_golden_presets.npz")
 OUT_RC = os.path.join(ROOT, "tests", "data", "torch_golden_rc.npz")
+OUT_VARIANTS = os.path.join(ROOT, "tests", "data",
+                            "torch_golden_variants.npz")
+FCT_TABLE = os.path.join(ROOT, "tests", "data", "torch_fct_table.json")
+CQM_FILE = os.path.join(ROOT, "tests", "data", "torch_cqm.txt")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
             "sao_c_typ", "sao_c_cls", "sao_c_offs_cb", "sao_c_pos_cb",
             "sao_c_offs_cr", "sao_c_pos_cr")
@@ -1102,15 +1121,294 @@ def write_rc_golden(path: str = OUT_RC, only=()) -> None:
     _save(path, data)
 
 
+# the remaining intra variants at 128x64. VARIANT_KEYS: every coded
+# frame's maps with the per-4x4 PU modes and the transform-skip bits.
+# VARIANT_CONFIGS: (configuration, content, frames): "trskip" is
+# tests/test_trskip.py's run (--transform-skip --pu-depth-intra 1-4, QP
+# 27) all-intra on its screen content; "trskip_b" and "fct_b" IDR + 2 B
+# of slice_frames with transform skip and with --fast-coeff-table
+# FCT_TABLE; "main10" 10-bit with SAO full, RDOQ and sign hiding at QP
+# 30 and "main10_p64" at the defaults (-p 64, every frame intra all the
+# same), on tests/test_main10.py's 0-1023 content; "scaling" --scaling-
+# list default with that tool row; "cqm" --cqmfile CQM_FILE; "lossless".
+VARIANT_KEYS = MAP_KEYS + ("mode_map4", "ts8")
+VARIANT_TOOLS = dict(sao_type="full", rdoq_enable=True,
+                     signhide_enable=True)
+VARIANT_CONFIGS = {
+    "trskip": (dict(trskip_enable=True, pu_depth_intra=(1, 4), qp=27,
+                    intra_period=1), "screen", 2),
+    "trskip_b": (dict(trskip_enable=True), "slice", 3),
+    "fct_b": (dict(fast_coeff_table=FCT_TABLE), "slice", 3),
+    "main10": (dict(VARIANT_TOOLS, input_bitdepth=10, qp=30), "main10",
+               2),
+    "main10_p64": (dict(input_bitdepth=10), "main10", 3),
+    "scaling": (dict(VARIANT_TOOLS, scaling_list="default", qp=30),
+                "slice", 2),
+    "cqm": (dict(cqmfile=CQM_FILE, qp=30), "slice", 2),
+    "lossless": (dict(lossless=True), "slice", 2),
+}
+# the stages: QP of the 10-bit and transform-skip stages, the QPs of the
+# scaled dequant (51 reaches the int32 fold's left shift and its clip)
+VARIANT_QP = 30
+SDQ_QPS = (4, 30, 51)
+VARIANT_SEED = 34
+
+
+def variant_frames(name: str, w: int = W, h: int = H) -> list:
+    """The frames of a VARIANT_CONFIGS entry."""
+    from chip_smoke import main10_frames, screen_frames
+    _, kind, n = VARIANT_CONFIGS[name]
+    return {"screen": screen_frames, "main10": main10_frames,
+            "slice": lambda n, w, h: slice_frames(n)}[kind](n, w, h)
+
+
+def fct_table() -> dict:
+    """The --fast-coeff-table of "fct_b": engine/fast_cost_weights.py's
+    weights for 4x4 to 16x16 TUs at 1.5 times their value (dearer
+    coefficients: fewer coded TUs and larger leaves), and no entry for
+    32x32, whose rate then takes the analytic estimate."""
+    from kvazaar_tpu_torch.engine.fast_cost_weights import FAST_COST_WEIGHTS
+    return {str(k): {str(q): [round(1.5 * x, 4) for x in w]
+                     for q, w in v.items()}
+            for k, v in FAST_COST_WEIGHTS.items() if k < 5}
+
+
+def write_fct_table(path: str = FCT_TABLE) -> None:
+    import json
+    with open(path, "w") as f:
+        json.dump(fct_table(), f, indent=1)
+        f.write("\n")
+
+
+def cqm_text() -> str:
+    """An HM-format quantisation-matrix file (kvazaar --cqmfile): every
+    intra and inter list from the default ones at three quarters of
+    their value plus noise from a fixed seed, in up-right diagonal scan
+    order; Cr equal to Cb (the quadtree path quantises both chroma
+    planes with matrix id 1, as the reference does), DC values 12."""
+    from kvazaar_tpu_torch.hevc.scaling import default_list
+    from kvazaar_tpu_torch.tables import SCAN_DIAG, scan_order
+    rng = np.random.RandomState(35)
+    lines = []
+    for size_id, (sz, names) in enumerate((
+            ("4X4", ("LUMA", "CHROMAU", "CHROMAV")),
+            ("8X8", ("LUMA", "CHROMAU", "CHROMAV")),
+            ("16X16", ("LUMA", "CHROMAU", "CHROMAV")),
+            ("32X32", ("LUMA",)))):
+        log2 = 2 if size_id == 0 else 3
+        for mode, base_id in (("INTRA", 0), ("INTER", 3)):
+            chroma = None
+            for k, nm in enumerate(names):
+                if nm == "CHROMAV":
+                    vals = chroma
+                else:
+                    base = default_list(size_id, base_id + k)
+                    vals = [int(np.clip(base[y, x] * 3 // 4
+                                        + rng.randint(0, 9), 6, 100))
+                            for x, y in scan_order(SCAN_DIAG, log2)]
+                    chroma = vals
+                lines.append(f"{mode}{sz}_{nm} =")
+                for i in range(0, len(vals), 8):
+                    lines.append(",".join(str(v) for v in vals[i:i + 8])
+                                 + ",")
+                if size_id >= 2:
+                    lines.append(f"{mode}{sz}_{nm}_DC =")
+                    lines.append("12")
+    return "\n".join(lines) + "\n"
+
+
+def write_cqm_file(path: str = CQM_FILE) -> None:
+    with open(path, "w") as f:
+        f.write(cqm_text())
+
+
+def variant_stage_inputs() -> dict:
+    """Residual blocks of the variant stages, from VARIANT_SEED: per size
+    n, 8 random TUs at amplitudes 4, 40, 400 and 1023 (two each, int32
+    [8, n, n]; `r10_<n>`); and 4x4 TUs that favour one side of the
+    transform-skip competition or the other (`ts4`, [32, 4, 4]): one to
+    three isolated spikes on zero, steps, smooth ramps and small noise."""
+    rng = np.random.RandomState(VARIANT_SEED)
+    out = {}
+    amps = np.repeat([4, 40, 400, 1023], 2)
+    for n in (4, 8, 16, 32):
+        r = rng.randint(-1023, 1024, (8, n, n))
+        out[f"r10_{n}"] = (r * amps[:, None, None] // 1023).astype(np.int32)
+    ts = np.zeros((32, 4, 4), np.int32)
+    yy, xx = np.mgrid[0:4, 0:4]
+    for i in range(32):
+        kind = i % 4
+        if kind == 0:
+            for _ in range(1 + i % 3):
+                ts[i, rng.randint(4), rng.randint(4)] = \
+                    rng.choice([-1, 1]) * rng.randint(40, 140)
+        elif kind == 1:
+            ts[i] = np.where(xx >= 1 + i % 3, rng.randint(30, 120), 0)
+        elif kind == 2:
+            ts[i] = (xx * rng.randint(-9, 10) + yy * rng.randint(-9, 10))
+        else:
+            ts[i] = rng.randint(-6, 7, (4, 4))
+    out["ts4"] = ts
+    return out
+
+
+def jax_variant_stages() -> dict:
+    """The JAX intra stages of the variants on variant_stage_inputs():
+    _transform_quant at 10-bit and VARIANT_QP for luma n = 4 (DST) to 32
+    and chroma n = 4 to 16, with the plain quantiser and with RDOQ and
+    sign hiding (`tq10{p,r}_{y,c}{n}_*`); the scaled dequant through
+    _transform_quant with the default lists at 8 and 10 bits and the QPs
+    of SDQ_QPS (`sdq{bd}_{y,c}{n}_q{qp}_*`); _transform_quant_skip on
+    4x4 TUs at 8 and 10 bits, plain, with RDOQ and sign hiding, and with
+    the default lists (`tqs{bd}{p,r,s}_{y,c}_*`); the transform-skip RD
+    competition _tq_4x4_rd at QP VARIANT_QP, plain and with RDOQ and
+    sign hiding (`tqrd{p,r}_{y,c}_*`: levels, reconstruction, choice);
+    and at 10-bit on main10 frame 0 the leaf costs of _leaf_rd (n = 8,
+    16, 32), _leaf_rd4, and _partition at depths 1-4 (`leaf10_*`,
+    `part10_*`)."""
+    import jax
+    import jax.numpy as jnp
+    from kvazaar_tpu.hevc.scaling import ScalingLists
+    from kvazaar_tpu.models.intra_md import MdIntraPipeline
+    inp = variant_stage_inputs()
+    out = {}
+
+    def run(p, fn, *args):
+        return jax.jit(p._with_consts(fn))(p.consts, *args)
+
+    def tmat(p, n, luma):
+        return p.dst4 if (luma and n == 4) else getattr(p, f"t{n}")
+
+    shapes = ((4, True), (8, True), (16, True), (32, True), (4, False),
+              (8, False), (16, False))
+    for tag, tools in (("p", {}), ("r", dict(rdoq=True,
+                                              sign_hiding=True))):
+        p = MdIntraPipeline(H, W, VARIANT_QP, bit_depth=10, **tools)
+        for n, luma in shapes:
+            def tq(r, p=p, n=n, luma=luma):
+                return p._transform_quant(
+                    r, tmat(p, n, luma), p.qp2[0] if luma else p.qp2[1],
+                    n, is_luma=luma)
+            key = f"tq10{tag}_{'y' if luma else 'c'}{n}"
+            out[key + "_levels"], out[key + "_resi"] = run(
+                p, tq, jnp.asarray(inp[f"r10_{n}"]))
+    for bd in (8, 10):
+        p = MdIntraPipeline(H, W, VARIANT_QP, bit_depth=bd,
+                            scaling=ScalingLists())
+        for n, luma in shapes:
+            r = jnp.asarray(inp[f"r10_{n}"] >> (10 - bd))
+            for qp in SDQ_QPS:
+                def sdq(r, p=p, n=n, luma=luma, qp=qp):
+                    return p._transform_quant(
+                        r, tmat(p, n, luma), qp, n,
+                        mats=p._mats_for(n, luma), is_luma=luma)
+                key = f"sdq{bd}_{'y' if luma else 'c'}{n}_q{qp}"
+                out[key + "_levels"], out[key + "_resi"] = run(p, sdq, r)
+    for bd in (8, 10):
+        for tag, kw in (("p", {}), ("r", dict(rdoq=True, sign_hiding=True)),
+                        ("s", dict(scaling=ScalingLists()))):
+            p = MdIntraPipeline(H, W, VARIANT_QP, bit_depth=bd, trskip=True,
+                                **kw)
+            r = jnp.asarray(inp["r10_4"] >> (10 - bd))
+            for luma in (True, False):
+                def tqs(r, p=p, luma=luma):
+                    return p._transform_quant_skip(
+                        r, p.qp2[0] if luma else p.qp2[1], 4,
+                        mats=p._mats_for(4, luma), is_luma=luma)
+                key = f"tqs{bd}{tag}_{'y' if luma else 'c'}"
+                out[key + "_levels"], out[key + "_resi"] = run(p, tqs, r)
+    for tag, kw in (("p", {}), ("r", dict(rdoq=True, sign_hiding=True))):
+        p = MdIntraPipeline(H, W, VARIANT_QP, trskip=True, **kw)
+        for luma in (True, False):
+            def tqrd(r, p=p, luma=luma):
+                # the wavefront's lambda (MdIntraPipeline._class_apply)
+                lam = 0.57 * 2.0 ** ((jnp.asarray(p.qp2[0], jnp.float32)
+                                      - 12.0) / 3.0)
+                return p._tq_4x4_rd(r, p.dst4 if luma else p.t4,
+                                    p.qp2[0] if luma else p.qp2[1], lam,
+                                    mats=p._mats_for(4, luma),
+                                    is_luma=luma)
+            key = f"tqrd{tag}_{'y' if luma else 'c'}"
+            lv, r2, use = run(p, tqrd, jnp.asarray(inp["ts4"]))
+            out.update({key + "_levels": lv, key + "_resi": r2,
+                        key + "_use": use})
+    src = tuple(jnp.asarray(a, jnp.int32)
+                for a in variant_frames("main10")[0])
+    p = MdIntraPipeline(H, W, VARIANT_QP, bit_depth=10, pu_depth=(1, 4))
+    for n in (8, 16, 32):
+        def leaf(y, cb, cr, n=n):
+            g, f, gc, t, tc = {
+                8: (p.g8l, p.f8, p.g4c, p.t8, p.t4),
+                16: (p.g16l, p.f16l, p.g8cc, p.t16, p.t8),
+                32: (p.g32l, p.f32, p.g16c, p.t32, p.t16)}[n]
+            return p._leaf_rd(y, cb, cr, n, g, f, gc, t, tc, p.lam2[0])
+        out[f"leaf10_{n}_modes"], out[f"leaf10_{n}_cost"] = run(p, leaf,
+                                                                *src)
+
+    def leaf4(y, cb, cr):
+        return p._leaf_rd4(y, cb, cr, p.lam2[0])
+
+    def part(y, cb, cr):
+        return p._partition(y, cb, cr, p.lam2[0])
+    out["leaf10_4_modes"], out["leaf10_4_cost"] = run(p, leaf4, *src)
+    for k, v in zip(("size_map8", "mode_map8", "mode_map4"),
+                    run(p, part, *src)):
+        out[f"part10_{k}"] = v
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _variant_part(part: str) -> dict:
+    """The arrays of one part of the variants golden: a VARIANT_CONFIGS
+    stream through encode_sequence, or the stages ("stages")."""
+    import time
+    t = time.perf_counter()
+    if part == "stages":
+        data = jax_variant_stages()
+    else:
+        stream, decs, _ = jax_gop_stream(
+            variant_frames(part), VARIANT_KEYS, **VARIANT_CONFIGS[part][0])
+        data = _stream_arrays(part + "_", stream, decs)
+    print(f"{part}: {time.perf_counter() - t:.1f} s", flush=True)
+    return data
+
+
+VARIANT_PARTS = (("trskip_b", "fct_b"),
+                 ("trskip", "main10", "main10_p64", "scaling", "cqm",
+                  "lossless", "stages"))
+
+
+def write_variants_golden(path: str = OUT_VARIANTS, only=()) -> None:
+    """Each part in a fresh process: the two B programs one after the
+    other in one worker, the all-intra parts in a second worker beside it
+    (as write_rc_golden). `only`: run these parts and merge them into the
+    existing file."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = multiprocessing.get_context("spawn")
+    lanes = [[p for p in lane if not only or p in only]
+             for lane in VARIANT_PARTS]
+    pools = [ProcessPoolExecutor(1, max_tasks_per_child=1, mp_context=ctx)
+             for _ in lanes]
+    futs = [pool.submit(_variant_part, part)
+            for pool, parts in zip(pools, lanes) for part in parts]
+    data = dict(np.load(path)) if only else {}
+    for f in futs:
+        data.update(f.result())
+    for pool in pools:
+        pool.shutdown()
+    _save(path, data)
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
-                             "presets", "rc"]
-    if which[0] == "rc" and len(which) > 1:
-        # python tools/torch_goldens.py rc <part> ...: re-run those parts
-        write_rc_golden(only=tuple(which[1:]))
+                             "presets", "rc", "variants"]
+    if which[0] in ("rc", "variants") and len(which) > 1:
+        # python tools/torch_goldens.py rc|variants <part> ...: re-run
+        # those parts
+        {"rc": write_rc_golden, "variants": write_variants_golden}[
+            which[0]](only=tuple(which[1:]))
         sys.exit(0)
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
          "gop": write_gop_golden, "presets": write_presets_golden,
-         "rc": write_rc_golden}[w]()
+         "rc": write_rc_golden, "variants": write_variants_golden}[w]()
