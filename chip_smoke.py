@@ -101,12 +101,28 @@ Phases (each prints its lines; any failure exits non-zero):
    (iii) on cuda and on the CPU at 416x240 with the same streams and
    maps, hash-exact: transform skip (IDR + 2 B), Main 10 with the tool
    row (2 frames), a --cqmfile (2 frames) and lossless coding (2 frames,
-   the reconstruction the source).
-The hash-exact decodes of phases 4-12's encodes run in a worker process
-beside the later phases, and are checked after phase 12; the CPU half of
+   the reconstruction the source);
+13. selective encryption, field coding and tiles: (i) --crypto on with a
+   --key, IDR + 2 B at 1920x1080 through the Python writers (8
+   me_refine and 12 me_eval launches a B frame), hash-exact with the key,
+   parsed into pictures that miss their hash without it; (ii)
+   --source-scan-type tff, 2 frames as 4 field pictures of 1920x540
+   (padded to 576; IDR + 3 B), an interlaced source in the SPS and a
+   pic_timing SEI a picture, hash-exact; (iii) --tiles 2x2 --slices
+   tiles with the tool row, 1 frame through TiledIntraPipeline, a slice
+   segment a tile, hash-exact, each tile's waves and submit time; (iv)
+   the multi-device dryrun's 4x4 grid of 320x192 tiles (2 frames)
+   through MeshTiledIntraPipeline over cuda:0 twice (or the CUDA devices
+   present where there are two or more), hash-exact and byte-identical
+   to the tiled path's stream of the same frames on the CPU (coded in
+   the CPU worker beside (i)-(iii)); (v) on cuda and on the CPU at
+   416x240 with the same streams and maps, hash-exact: the three intra
+   features of --crypto, bottom field first and 2x2 tiles with --vaq 8.
+The hash-exact decodes of phases 4-13's encodes run in a worker process
+beside the later phases, and are checked after phase 13; the CPU half of
 every cuda-against-CPU run runs in another, beside its cuda half.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4, 6, 7, 8, 9, 10, 11 and 12; me_eval's pair
+over the encodes of phases 4 and 6-13; me_eval's pair
 and one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
@@ -203,6 +219,21 @@ VARIANTS_416 = (("trskip_b", dict(trskip_enable=True), "mixed", 3),
                  "main10", 2),
                 ("cqm", dict(cqmfile=CQM_FILE, qp=30), "mixed", 2),
                 ("lossless", dict(lossless=True), "mixed", 2))
+# phase 13, selective encryption, field coding and tiles: (i) every
+# --crypto feature with a --key; (ii) top field first; (iii) a 2x2 tile
+# grid with a slice segment a tile and the tool row; (iv) the dryrun's
+# grid (4x4 tiles of 320x192) over two devices; (v) at 416x240 the three
+# intra features of --crypto, bottom field first, and 2x2 tiles with
+# --vaq 8
+SMOKE_KEY = ",".join(str(17 * i + 3) for i in range(16))
+CRYPTO_ON = dict(crypto="on", crypto_key=SMOKE_KEY)
+FIELD_TFF = dict(source_scan_type="tff")
+TILES_SLICES = dict(TOOL_ROW, tiles=(2, 2), slices="tiles")
+EXTRAS_416 = (("crypto intra features",
+               dict(crypto="intra_pred_modes+trans_coeffs+trans_coeff_signs",
+                    crypto_key=SMOKE_KEY), 1),
+              ("bff", dict(source_scan_type="bff"), 1),
+              ("tiles 2x2 vaq", dict(tiles=(2, 2), vaq=8), 1))
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -498,9 +529,10 @@ def kernel_errors(me, ref, blocks, cands, mvs, lam, n, cols, ref1):
 def encode_coded(frames, w, h, dev, cfg):
     """(chunk, decision maps as numpy arrays, waves) per coded frame of
     frames encoded through encode_sequence on dev with cfg."""
-    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence, field_config
     from kvazaar_tpu_torch.cfg import Config
-    enc = Encoder(Config(width=w, height=h, **cfg), device=dev)
+    frame_cfg = Config(width=w, height=h, **cfg)
+    enc = Encoder(field_config(frame_cfg), device=dev)
     coded = []
 
     def record(meta, finalize=enc.finalize_frame):
@@ -511,7 +543,7 @@ def encode_coded(frames, w, h, dev, cfg):
         coded.append((chunk, maps, int(info["n_waves"])))
         return chunk, info
     enc.finalize_frame = record
-    encode_sequence(enc.cfg, frames, encoder=enc)
+    encode_sequence(frame_cfg, frames, encoder=enc)
     return coded
 
 
@@ -810,7 +842,8 @@ def phase_kernels(me, torch, rates):
     return out
 
 
-def encode_timed(torch, me, cfg, frames, label, native=True):
+def encode_timed(torch, me, cfg, frames, label, native=True,
+                 decoder_kw=None):
     """Encode display-order frames through encode_sequence on cuda with
     the Config options cfg, the kernel launch counters set to 0 just
     before and read just after. Prints the run and, per coded frame
@@ -825,20 +858,30 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
     (4 sizes x 2 lists) and me_eval 12 times, each P frame me_refine 4
     times a picture of its stack and me_eval 8 times in its one-list
     mode.
-    Queues the stream's decode (decode_check), which check_decodes
-    requires to be hash-exact, in display order and equal to the
-    encoder's reconstruction. Returns (launches, infos, per coded frame the
+    With tiles the wavefront and SAO times are the sums over the frame's
+    tiles, and each tile's waves and submit time are printed too.
+    Queues the stream's decode (decode_check, with the HEVCDecoder
+    options decoder_kw), which check_decodes requires to be hash-exact,
+    in display order and equal to the encoder's reconstruction; field
+    coding's encoder is built on the field configuration, and its coded
+    pictures are fields. Returns (launches, infos, per coded frame the
     maps size_map8, inter8, dir8, ref8, ref8b, part8, qp_ctb and ts8
     where present, with the frame's chunk and plan: disp, l0, l1, nal)."""
-    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence, field_config
     from kvazaar_tpu_torch.cfg import Config
     h, w = frames[0][0].shape
-    enc = Encoder(Config(width=w, height=h, **cfg), device="cuda")
+    frame_cfg = Config(width=w, height=h, **cfg)
+    enc = Encoder(field_config(frame_cfg), device="cuda")
     times = {"submit": [], "wavefront": [], "sao": [], "host": []}
+    steps = {"_recon_md": "wavefront", "_sao": "sao"}
+    tile_pipes = list(getattr(enc._pipeline, "pipes", {}).values())
+    for p in tile_pipes:
+        wrap_timed(torch, p, {"submit": "tile_submit",
+                              **{k: "tile_" + v for k, v in steps.items()}},
+                   times)
     wrap_timed(torch, enc._pipeline,
                {"submit": "submit", "submit_inter_b": "submit",
-                "submit_inter": "submit", "_recon_md": "wavefront",
-                "_sao": "sao"}, times)
+                "submit_inter": "submit", **steps}, times)
     wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
     maps = []
     finalize = enc.finalize_frame
@@ -860,9 +903,14 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
     me.me_eval.launches = 0
     me.me_eval.one_list_launches = 0
     t0 = time.perf_counter()
-    stream, infos = encode_sequence(enc.cfg, frames, encoder=enc)
+    stream, infos = encode_sequence(frame_cfg, frames, encoder=enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if tile_pipes:
+        n_t = enc.tile_grid.n_tiles
+        for k in ("wavefront", "sao"):
+            per = times.get("tile_" + k, [])
+            times[k] = [sum(per[i:i + n_t]) for i in range(0, len(per), n_t)]
     launches = {"me_refine": me.me_refine.launches,
                 "me_eval": me.me_eval.launches,
                 "me_eval_one_list": me.me_eval.one_list_launches}
@@ -906,6 +954,10 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
               f"wall {sub:.1f} ms, wavefront {wav:.1f} ms, SAO "
               f"{'off' if sao_ms is None else f'{sao_ms:.2f} ms'}, host "
               f"entropy coding {host:.1f} ms", flush=True)
+        if tile_pipes:
+            sub = times["tile_submit"][k * n_t:(k + 1) * n_t]
+            print(f"    tiles: waves {i['tile_waves']}, submit wall ms "
+                  f"{[round(x, 1) for x in sub]}", flush=True)
     if launches != expect:
         fail(f"{label}: kernel launches {launches} != {expect}")
     if native and enc.native_slices != len(infos) - smp:
@@ -915,8 +967,9 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
         fail(f"{label}: a native slice writer coded a frame that the "
              "Python writers must code")
     recon = [tuple(np.asarray(a) for a in i["recon_out"]) for i in infos]
-    _DECODES.append((label, len(frames), worker_pool("decode").submit(
-        decode_check, stream, recon, [m["disp"] for m in maps])))
+    _DECODES.append((label, len(infos), worker_pool("decode").submit(
+        decode_check, stream, recon, [m["disp"] for m in maps],
+        decoder_kw)))
     return launches, infos, maps
 
 
@@ -926,6 +979,7 @@ def encode_timed(torch, me, cfg, frames, label, native=True):
 # The CPU halves of compare_devices run in another ("cpu", CPU_THREADS
 # intra-op threads) beside their cuda halves.
 _DECODES: list = []
+_GARBLED: list = []
 _POOLS: dict = {}
 CPU_THREADS = 4
 
@@ -946,15 +1000,16 @@ def worker_pool(name: str):
     return _POOLS[name]
 
 
-def decode_check(stream, recon, disp):
+def decode_check(stream, recon, disp, decoder_kw=None):
     """Decode stream (coded in the order of recon, the encoder's cropped
-    planes per coded frame, and disp, their display indices): returns
+    planes per coded frame, and disp, their display indices) with the
+    HEVCDecoder options decoder_kw (an encrypted stream's key): returns
     each picture's hash_ok, the display indices in output order, whether
     every decoded picture equals the encoder's reconstruction, and the
     seconds it took."""
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     t = time.perf_counter()
-    pics = HEVCDecoder().decode(stream)
+    pics = HEVCDecoder(**(decoder_kw or {})).decode(stream)
     same = len(pics) == len(recon) and all(
         np.array_equal(a, b)
         for p, r in zip(pics, recon) for a, b in zip(p.planes, r))
@@ -965,8 +1020,17 @@ def decode_check(stream, recon, disp):
 def check_decodes() -> None:
     """Wait for the decodes of the encode_timed runs, print them, and fail
     unless each stream decodes hash-exactly, in display order, to the
-    encoder's reconstruction."""
+    encoder's reconstruction; and unless each encrypted stream decoded
+    without its key (_GARBLED) parses every picture and misses some
+    picture's hash."""
     t = time.perf_counter()
+    for label, n, fut in _GARBLED:
+        ok, _, same, secs = fut.result()
+        print(f"{label} decode without the key: {len(ok)} frames hash_ok "
+              f"{ok} ({secs:.1f} s in the decode worker)", flush=True)
+        if len(ok) != n or all(ok) or same:
+            fail(f"{label}: without the key the stream does not parse "
+                 "into garbled pictures")
     for label, n, fut in _DECODES:
         ok, shown, same, secs = fut.result()
         print(f"{label} decode: {len(ok)} frames hash_ok {ok} ({secs:.1f} "
@@ -1324,6 +1388,103 @@ def phase_variants(torch, me):
     return {k: li[k] + lii[k] for k in li}
 
 
+def smoke_key() -> bytes:
+    """The --key bytes as the encoder reads them (each value & 0xff)."""
+    return bytes(int(t) & 0xff for t in SMOKE_KEY.split(","))
+
+
+def pic_structs(stream: bytes) -> list:
+    """pic_struct of every pic_timing SEI of an Annex-B stream."""
+    from kvazaar_tpu_torch.bitstream import (NAL_PREFIX_SEI, ebsp_to_rbsp,
+                                             split_annexb)
+    return [ebsp_to_rbsp(e)[2] >> 4 for t, _, e in split_annexb(stream)
+            if t == NAL_PREFIX_SEI and ebsp_to_rbsp(e)[0] == 1]
+
+
+def phase_extras(torch, me):
+    """Selective encryption, field coding and tiles at 1080p: (i)
+    CRYPTO_ON, IDR + 2 B of mixed_frames through the Python writers,
+    hash-exact with the key, parsed but not hash-exact without it; (ii)
+    FIELD_TFF, 2 frames as 4 fields of 1920x540 (padded to 576; IDR + 3
+    B), an interlaced source in the SPS, a pic_timing SEI a picture (top,
+    bottom, top, bottom), hash-exact 540-line pictures; (iii)
+    TILES_SLICES, 1 frame through TiledIntraPipeline, a slice segment a
+    tile, hash-exact, each tile's waves and submit time; (iv) the
+    dryrun's 4x4 grid at 1280x768 (2 frames) through
+    MeshTiledIntraPipeline over cuda:0 twice (or the CUDA devices present
+    where there are two or more), hash-exact and byte-identical to
+    TiledIntraPipeline's stream of the same frames on the CPU (coded in
+    the "cpu" worker from the start of the phase); (v) EXTRAS_416 at
+    416x240 on cuda and on the CPU: the same streams and maps,
+    hash-exact. Returns the launches of (i) to (iii)."""
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    from kvazaar_tpu_torch.parallel import dryrun
+    t13 = time.perf_counter()
+    tiled_cpu = worker_pool("cpu").submit(dryrun.tiled_stream, 4, "cpu")
+    t = time.perf_counter()
+    frames = mixed_frames(3, W, H)
+    key = dict(crypto="on", crypto_key=smoke_key())
+    li, infos, maps = encode_timed(torch, me, CRYPTO_ON, frames,
+                                   "crypto on (i)", native=False,
+                                   decoder_kw=key)
+    stream = b"".join(m["chunk"] for m in maps)
+    _GARBLED.append(("crypto on (i)", len(infos), worker_pool(
+        "decode").submit(decode_check, stream,
+                         [tuple(np.asarray(a) for a in i["recon_out"])
+                          for i in infos], list(range(len(infos))))))
+    print(f"crypto on (i): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    lii, infos, maps = encode_timed(torch, me, FIELD_TFF,
+                                    mixed_frames(2, W, H), "fields tff (ii)")
+    stream = b"".join(m["chunk"] for m in maps)
+    sps, structs = stream_sps(stream), pic_structs(stream)
+    shapes = [i["recon_out"][0].shape for i in infos]
+    src = (sps.ptl.general_interlaced_source_flag,
+           sps.ptl.general_progressive_source_flag)
+    print(f"  SPS interlaced/progressive source {src}, coded "
+          f"{sps.width}x{sps.height}, conformance window {sps.conf_win}; "
+          f"pic_struct {structs}; pictures {shapes}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if (src, structs, shapes) != ((1, 0), [1, 2, 1, 2], [(H // 2, W)] * 4):
+        fail("fields: not four 540-line field pictures with pic_timing")
+    t = time.perf_counter()
+    liii, infos, _ = encode_timed(torch, me, TILES_SLICES,
+                                  mixed_frames(1, W, H),
+                                  "tiles 2x2 slices tiles (iii)",
+                                  native=False)
+    print(f"tiles (iii): {time.perf_counter() - t:.1f} s", flush=True)
+    if any((i["slices"], i["substreams"]) != (4, 4) for i in infos):
+        fail("tiles: not a slice segment a tile")
+    t = time.perf_counter()
+    devs = dryrun.dryrun_devices(max(2, torch.cuda.device_count()), "cuda")
+    stream, infos, mesh, mesh_s = dryrun.mesh_stream(devs, 4)
+    ref, cpu_s = tiled_cpu.result()
+    print(f"mesh (iv): devices {[str(d) for d in devs]}, mesh {mesh}, "
+          f"{len(infos)} frames, {len(stream)} bytes, tiles a frame "
+          f"{[len(i['tile_waves']) for i in infos]}, mesh encode "
+          f"{mesh_s:.1f} s; the CPU's TiledIntraPipeline stream "
+          f"{len(ref)} bytes in {cpu_s:.1f} s, identical "
+          f"{stream == ref}; {time.perf_counter() - t:.1f} s", flush=True)
+    if stream != ref:
+        fail("mesh: the stream differs from TiledIntraPipeline's")
+    _DECODES.append(("mesh (iv)", len(infos), worker_pool("decode").submit(
+        decode_check, stream,
+        [tuple(np.asarray(a) for a in i["recon_out"]) for i in infos],
+        list(range(len(infos))))))
+    for label, cfg, n in EXTRAS_416:
+        t = time.perf_counter()
+        frames = mixed_frames(n, 416, 240)
+        stream, rows = compare_devices(frames, 416, 240, **cfg)
+        parity_rows(f"{label} (v)", rows, t)
+        kw = ({"crypto": cfg["crypto"], "crypto_key": smoke_key()}
+              if "crypto" in cfg else {})
+        pics = HEVCDecoder(**kw).decode(stream)
+        if len(pics) != len(rows) or not all(p.hash_ok for p in pics):
+            fail(f"{label}: the stream does not decode hash-exactly")
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    return {k: li[k] + lii[k] + liii[k] for k in li}
+
+
 def phase_device_parity():
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps."""
@@ -1403,6 +1564,7 @@ def main() -> None:
     runs.append(phase_presets(torch, me))
     runs.append(phase_rc(torch, me, main_maps))
     runs.append(phase_variants(torch, me))
+    runs.append(phase_extras(torch, me))
     check_decodes()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "

@@ -161,6 +161,9 @@ def main(argv=None) -> int:
     if args.preset:
         apply_preset(cfg, args.preset)
     cfg.ctu_size = args.ctu or 64
+    if args.tiles or args.vaq or args.roi or args.lossless \
+            or reader.bit_depth > 8 or args.scaling_list != "off":
+        cfg.ctu_size = 64      # these tools ride the quadtree pipeline
     enc = Encoder(cfg, device=args.device)
     if args.seek:
         reader.seek(args.seek)

@@ -21,9 +21,12 @@ pictures); and the B pyramid (--gop 2/4/8/16, closed or --open-gop):
 display-order frames fed through push_frame/flush are coded span by span
 in coding order (engine/gop.py's GopScheduler), a P anchor (or an
 open-GOP CRA picture) then the dyadic B pictures with past pictures in
-list 0 and future ones in list 1. Options outside that (crypto, field
-coding, tiles, CTU sizes other than 64) raise NotImplementedError naming
-their ROADMAP.md entry.
+list 0 and future ones in list 1; selective encryption (--crypto, --key:
+the Python writers code every picture), field coding (--source-scan-type
+tff|bff: encode_sequence codes each frame as two fields) and tiles
+(--tiles, --slices tiles: every frame intra, tile by tile, or over the
+CUDA devices for a uniform grid). CTU sizes other than 64 raise
+NotImplementedError naming their ROADMAP.md entry.
 
 Rate control chooses a frame's QP when its device work is submitted and
 learns from its bits when it is finalized, so in the pipelined loops
@@ -72,7 +75,10 @@ def build_sps(cfg: Config) -> SPS:
     sps.scaling_list_enabled = 0 if cfg.scaling_list == "off" else 1
     sps.amp_enabled = 1 if cfg.amp_enable else 0
     sps.strong_intra_smoothing = 1 if cfg.strong_intra_smoothing else 0
-    sps.temporal_mvp_enabled = 1 if cfg.intra_period != 1 else 0
+    # TMVP with inter coding, not with tiles (the reference disables it
+    # there: cross-tile collocated reads, src/cfg.c:922)
+    sps.temporal_mvp_enabled = (1 if cfg.intra_period != 1
+                                and tuple(cfg.tiles) == (1, 1) else 0)
     if cfg.gop_len > 1:
         # up to 4 retained references + the current picture
         sps.max_dec_pic_buffering_minus1 = 4
@@ -104,10 +110,24 @@ def build_pps(cfg: Config) -> PPS:
     pps.tc_offset_div2 = cfg.deblock_tc
     pps.loop_filter_across_slices = 1
     if cfg.slices != "none":
-        # a slice segment a WPP row, the later ones dependent (spec
-        # 7.4.7.1)
+        # a slice segment a tile or WPP row, the later ones dependent
+        # (spec 7.4.7.1)
         pps.dependent_slice_segments_enabled = 1
     return pps
+
+
+def parse_crypto(cfg: Config) -> tuple[int, bytes | None]:
+    """The selective-encryption features of --crypto and the 16-byte
+    --key (None: the default key); ValueError for a malformed spec or
+    key."""
+    from .extras.crypto import parse_crypto_spec
+    features = parse_crypto_spec(cfg.crypto)
+    key = None
+    if cfg.crypto_key:
+        key = bytes(int(t) & 0xff for t in cfg.crypto_key.split(","))
+        if len(key) != 16:
+            raise ValueError("--key needs 16 comma-separated bytes")
+    return features, key
 
 
 def check_config(cfg: Config) -> None:
@@ -121,54 +141,60 @@ def check_config(cfg: Config) -> None:
         raise ValueError("--slices wpp requires --wpp")
     if cfg.slices == "tiles" and tuple(cfg.tiles) == (1, 1):
         raise ValueError("--slices tiles requires a tile grid")
+    parse_crypto(cfg)
     if cfg.trskip_enable and tuple(cfg.tiles) != (1, 1):
         raise NotImplementedError(
             "--transform-skip with tiles is not wired up yet")
     # every frame is coded intra with --period 1, and (as in the
-    # reference, kvazaar_tpu/api.py:247-254) with VAQ, ROI, 10-bit,
+    # reference, kvazaar_tpu/api.py:244-263) with tiles, VAQ, ROI, 10-bit,
     # lossless or a scaling list: no GOP then, nor SMP/AMP (the reference
     # refuses both)
     all_intra = cfg.intra_period == 1 or not _inter_coding(cfg)
     if cfg.gop_len > 1 and all_intra:
         raise NotImplementedError(
             "a GOP (--gop) needs inter frames: not with --period 1, "
-            "--vaq, --roi, 10-bit, --lossless or a scaling list")
+            "tiles, --vaq, --roi, 10-bit, --lossless or a scaling list")
     if (cfg.smp_enable or cfg.amp_enable) and all_intra \
             and cfg.intra_period != 1:
         raise NotImplementedError(
-            "SMP/AMP needs inter frames: not with --vaq, --roi, 10-bit, "
-            "--lossless or a scaling list")
-    crypto_field = "selective encryption and field coding"
-    tiles = "tiles/multi-device"
-    grid16 = "the 16-grid pipelines"
-    for bad, what, entry in (
-            (cfg.ctu_size != 64, f"--ctu {cfg.ctu_size}", grid16),
-            (cfg.crypto not in ("off", ""), "selective encryption",
-             crypto_field),
-            (cfg.source_scan_type != "progressive", "field coding",
-             crypto_field),
-            (tuple(cfg.tiles) != (1, 1), "tiles", tiles),
-            (cfg.slices == "tiles", "--slices tiles", tiles)):
-        if bad:
-            raise unsupported(what, entry)
+            "SMP/AMP needs inter frames: not with tiles, --vaq, --roi, "
+            "10-bit, --lossless or a scaling list")
+    if cfg.ctu_size != 64:
+        raise unsupported(f"--ctu {cfg.ctu_size}", "the 16-grid pipelines")
 
 
 def _inter_coding(cfg: Config) -> bool:
-    """Whether the options allow inter frames at all: not with VAQ, ROI,
-    10-bit, lossless or a scaling list (the reference's `inter_md`)."""
-    return not (cfg.vaq or cfg.roi_file or cfg.lossless
-                or cfg.input_bitdepth != 8 or cfg.scaling_list != "off")
+    """Whether the options allow inter frames at all: not with tiles,
+    VAQ, ROI, 10-bit, lossless or a scaling list (the reference's
+    `inter_md`)."""
+    return not (tuple(cfg.tiles) != (1, 1) or cfg.vaq or cfg.roi_file
+                or cfg.lossless or cfg.input_bitdepth != 8
+                or cfg.scaling_list != "off")
 
 
 class Encoder:
     """HEVC encoder on the quadtree path: IDR + low-delay generalized-B
     or (--no-bipred) P frames, optionally in the lp GOP (submit_frame /
     finalize_frame), or the B pyramid (push_frame / flush); all-intra
-    with --period 1, --vaq or --roi."""
+    with --period 1, tiles, --vaq or --roi."""
 
-    def __init__(self, cfg: Config, device="cuda") -> None:
+    def __init__(self, cfg: Config, device="cuda",
+                 tile_devices=None) -> None:
+        """device: the torch device of the pipelines. tile_devices: the
+        devices a uniform tile grid runs over (MeshTiledIntraPipeline;
+        one may repeat), by default the CUDA devices present when device
+        is a CUDA device."""
         import torch
-        cfg.validate()
+        if getattr(cfg, "_fields_split", False):
+            # a field picture's configuration (encode_sequence's split):
+            # the frame's dimensions are what must be multiples of 8, a
+            # field of 1080 lines has 540 and pads to the CTB
+            import copy
+            frame = copy.copy(cfg)
+            frame.height = 2 * cfg.height
+            frame.validate()
+        else:
+            cfg.validate()
         check_config(cfg)
         if cfg.lossless:
             # transquant bypass: the loop filters never touch bypass
@@ -178,6 +204,8 @@ class Encoder:
             cfg.signhide_enable = False
             cfg.rdoq_enable = False
         self.cfg = cfg
+        # selective encryption (extras/crypto.py): the features and key
+        self.crypto_features, self.crypto_key = parse_crypto(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Encoder(device='cuda') needs a CUDA device; "
@@ -189,7 +217,36 @@ class Encoder:
         self.sps.height = cfg.height + self.pad_h
         if self.pad_w or self.pad_h:
             self.sps.conf_win = (0, self.pad_w // 2, 0, self.pad_h // 2)
+        # field coding (kvazaar_field_encoding_adapter, src/kvazaar.c:
+        # 311-392): each picture is a field of half the frame's height
+        self.field_mode = cfg.source_scan_type in ("tff", "bff")
+        if self.field_mode:
+            self.sps.field_seq_flag = 1
+            self.sps.ptl.general_interlaced_source_flag = 1
+            self.sps.ptl.general_progressive_source_flag = 0
+            self.sps.ptl.general_frame_only_constraint_flag = 0
         self.pps = build_pps(cfg)
+        # tiles: independent rectangles, the loop filters not crossing
+        # their edges (PPS loop_filter_across_tiles_enabled_flag 0, src/
+        # encoder_state-bitstream.c:545); they disable WPP (src/cfg.c:927)
+        # and code every frame intra
+        self.tile_grid = None
+        if tuple(cfg.tiles) != (1, 1):
+            if cfg.wpp:
+                import sys
+                print("Disabling WPP because tiles were enabled.",
+                      file=sys.stderr)
+                cfg.wpp = False
+                self.pps.entropy_coding_sync_enabled = 0
+            from .hevc.tiles import TileGrid
+            cols, rows = cfg.tiles
+            self.tile_grid = TileGrid.make(
+                self.sps.width_in_ctbs, self.sps.height_in_ctbs, cols, rows)
+            self.pps.tiles_enabled = 1
+            self.pps.num_tile_columns = cols
+            self.pps.num_tile_rows = rows
+            self.pps.uniform_spacing = 1
+            self.pps.loop_filter_across_tiles = 0
         self.frame_num = 0
         self.poc = 0
         # VAQ / ROI code every frame intra with a QP a CTB (10-bit,
@@ -225,7 +282,6 @@ class Encoder:
                 smp=cfg.smp_enable or cfg.amp_enable, amp=cfg.amp_enable,
                 bipred=cfg.bipred, **kw)
         else:
-            from .models.intra_md import MdIntraPipeline
             scaling = None
             if cfg.scaling_list != "off":
                 from .hevc.scaling import ScalingLists, load_cqmfile
@@ -235,11 +291,16 @@ class Encoder:
                         cfg.cqmfile)
                 else:
                     scaling = ScalingLists()
-            self._pipeline = MdIntraPipeline(
-                self.sps.height, self.sps.width, cfg.qp,
-                delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp),
-                bit_depth=cfg.input_bitdepth, scaling=scaling,
-                lossless=cfg.lossless, **kw)
+            kw.update(delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp),
+                      bit_depth=cfg.input_bitdepth, scaling=scaling,
+                      lossless=cfg.lossless)
+            args = (self.sps.height, self.sps.width, cfg.qp)
+            if self.tile_grid is None:
+                from .models.intra_md import MdIntraPipeline
+                self._pipeline = MdIntraPipeline(*args, **kw)
+            else:
+                self._pipeline = self._tile_pipeline(args, kw,
+                                                     tile_devices)
         # the low-delay GOP's per-position plan (--gop lp-gGdDtT)
         self._lp = None
         if cfg.gop_lowdelay and self.inter_enabled:
@@ -278,6 +339,28 @@ class Encoder:
                               else cfg.intra_period,
                               intra_bits=cfg.intra_bits,
                               gop_len=max(cfg.gop_len, 1), rdo=cfg.rd)
+
+    def _tile_pipeline(self, args, kw, devices):
+        """The tiles' pipeline, as the reference routes it: a uniform grid
+        of more than one tile without delta QP runs over the devices
+        (MeshTiledIntraPipeline) where mesh_shape_for maps it onto them,
+        every other grid tile by tile (TiledIntraPipeline)."""
+        import torch
+        from .parallel.mesh import (MeshTiledIntraPipeline,
+                                    grid_is_uniform, mesh_shape_for)
+        from .parallel.tiled import TiledIntraPipeline
+        g = self.tile_grid
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        if (not self.dqp_enabled and self.cfg.mesh_tiles != "off"
+                and grid_is_uniform(g) and g.n_tiles > 1
+                and mesh_shape_for(g, len(devices)) is not None):
+            kw = {k: v for k, v in kw.items() if k != "device"}
+            return MeshTiledIntraPipeline(list(devices), *args, g, ctb=64,
+                                          **kw)
+        return TiledIntraPipeline(*args, g, ctb=64, **kw)
 
     def _push_ref(self, entry: dict, keep: set | None = None) -> None:
         """Add a reference picture: the DPB then keeps the n_refs newest,
@@ -544,12 +627,15 @@ class Encoder:
         """Entropy-code the slice: the native C++ writers, or the Python
         writers where the library cannot be built, for SMP/AMP slices
         (the native writer has no part_mode syntax), under delta QP, with
-        --slices, transform skip and lossless coding (as the reference
-        routes them; 10-bit and scaling lists stay native). With WPP each CTB
-        row is a substream that starts from the contexts saved after the
-        row above's second CTB, with the QP chain reset. Returns
-        (substreams, motion field for TMVP or None, the bits of each CTB
-        under LCU rate control or None)."""
+        --slices, tiles, selective encryption, transform skip and
+        lossless coding (as the reference routes them; 10-bit and scaling
+        lists stay native). With WPP each CTB row is a substream that
+        starts from the contexts saved after the row above's second CTB,
+        with the QP chain reset; with tiles each tile is one, in tile-scan
+        order, from fresh contexts. Under encryption one keystream serves
+        the picture's substreams in write order. Returns (substreams,
+        motion field for TMVP or None, the bits of each CTB under LCU
+        rate control or None)."""
         from . import native
         slice_type = meta["slice_type"]
         sdh = bool(self.pps.sign_data_hiding_enabled)
@@ -557,8 +643,14 @@ class Encoder:
         wpp = bool(self.pps.entropy_coding_sync_enabled)
         seg_mode = self.cfg.slices != "none"
         n_y, n_x = self.sps.height_in_ctbs, self.sps.width_in_ctbs
+        crypto_res = None
+        if self.crypto_features:
+            from .extras.crypto import CryptoHandle
+            crypto_res = (CryptoHandle(self.crypto_key),
+                          self.crypto_features)
         python_only = (self.dqp_enabled or seg_mode or self.cfg.lossless
-                       or self.cfg.trskip_enable)
+                       or self.cfg.trskip_enable or crypto_res is not None
+                       or self.tile_grid is not None)
 
         def split(data, sizes):
             out, off = [], 0
@@ -579,6 +671,9 @@ class Encoder:
                 return split(data, sizes), None, None
             from .engine.md_writer import MdIntraWriter
             writer = MdIntraWriter(self.sps, self.pps, sh, decisions)
+            if self.tile_grid is not None:
+                writer.tile_ctb = self.tile_grid.tile_id_ctb
+                writer.tile4 = self.tile_grid.tile4_map(self.sps.ctb_size)
         else:
             from .engine.md_inter_writer import MdPSliceWriter
             l0, l1 = meta["l0"], meta["l1"]
@@ -609,35 +704,45 @@ class Encoder:
                                      bit_depth=self.sps.bit_depth_luma)
         lcu_bits = (np.zeros((n_y, n_x), np.int64) if self.lcu_rc
                     else None)
+        if self.tile_grid is not None:
+            # tile-scan order: (ctu_x, ctu_y, substream start, substream
+            # end) a CTB, a substream a tile
+            g = self.tile_grid
+            scan = [(x, y, (x, y) == g.rect(tid)[:2], end)
+                    for x, y, tid, end in g.scan()]
+        else:
+            scan = [(x, y, x == 0 and (y == 0 or wpp),
+                     x == n_x - 1 and (wpp or y == n_y - 1))
+                    for y in range(n_y) for x in range(n_x)]
         substreams = []
         saved_ctx = None
         bw = cab = None
-        for ctu_y in range(n_y):
-            if ctu_y == 0 or wpp:
-                # a new substream: the slice's first, or a WPP row's
+        for ctu_x, ctu_y, start, end in scan:
+            if start:
+                # a new substream: the slice's first, a tile's or a WPP
+                # row's
                 ctx = (saved_ctx.copy() if saved_ctx is not None
                        else ContextSet(2 - slice_type, sh.qp))
                 bw = BitWriter()
                 cab = CabacEncoder(bw, ctx)
+                cab.crypto_res = crypto_res
                 writer.cab = cab
                 if hasattr(writer, "reset_qp_chain"):
                     writer.reset_qp_chain()
-            for ctu_x in range(n_x):
-                b0 = cab.bit_count
-                writer.write_ctu(ctu_y, ctu_x)
-                if lcu_bits is not None:
-                    lcu_bits[ctu_y, ctu_x] = cab.bit_count - b0
-                if wpp and ctu_x == 1 and n_x > 1:
-                    saved_ctx = ctx.copy()
-                last = ctu_y == n_y - 1 and ctu_x == n_x - 1
-                row_end = ctu_x == n_x - 1
-                # end_of_slice_segment_flag, 1 at every row end with a
-                # segment a row; else end_of_subset_one_bit at a WPP row end
-                cab.encode_bin_trm(1 if last or (seg_mode and row_end)
-                                   else 0)
-                if wpp and row_end and not last and not seg_mode:
-                    cab.encode_bin_trm(1)
-            if wpp or ctu_y == n_y - 1:
+            b0 = cab.bit_count
+            writer.write_ctu(ctu_y, ctu_x)
+            if lcu_bits is not None:
+                lcu_bits[ctu_y, ctu_x] = cab.bit_count - b0
+            if wpp and ctu_x == 1 and n_x > 1:
+                saved_ctx = ctx.copy()
+            last = ctu_y == n_y - 1 and ctu_x == n_x - 1
+            # end_of_slice_segment_flag, 1 at every substream's end with a
+            # segment a substream; else end_of_subset_one_bit at the end
+            # of a tile or WPP row
+            cab.encode_bin_trm(1 if last or (seg_mode and end) else 0)
+            if end and not last and not seg_mode:
+                cab.encode_bin_trm(1)
+            if end:
                 cab.finish()
                 bw.byte_align_one()
                 substreams.append(bw.get_bytes())
@@ -681,15 +786,20 @@ class Encoder:
                     del self._motion_fields[p]
 
         if cfg.slices != "none" and len(substreams) > 1:
-            # --slices wpp: a slice segment NAL a substream (CTB row), the
-            # first independent, the rest dependent (spec 7.4.7.1)
+            # --slices tiles|wpp: a slice segment NAL a substream (tile or
+            # CTB row), addressed at its first CTB, the first independent,
+            # the rest dependent (spec 7.4.7.1)
             import copy
+            g = self.tile_grid
+            addrs = [(g.rect(i)[1] * self.sps.width_in_ctbs + g.rect(i)[0]
+                      if g is not None else i * self.sps.width_in_ctbs)
+                     for i in range(len(substreams))]
             slice_nals = []
             for i, sdata in enumerate(substreams):
                 shi = copy.copy(sh)
                 shi.first_slice_in_pic = 1 if i == 0 else 0
                 shi.dependent_slice_segment = 0 if i == 0 else 1
-                shi.segment_address = i * self.sps.width_in_ctbs
+                shi.segment_address = addrs[i]
                 shi.entry_point_offsets = []
                 w = BitWriter()
                 write_slice_header(shi, self.sps, self.pps, nal_type, w)
@@ -715,6 +825,15 @@ class Encoder:
         if meta["frame_num"] == 0 or (vp > 0
                                       and meta["frame_num"] % vp == 0):
             out += self.headers()
+        if self.field_mode:
+            # pic_timing SEI: a top or bottom field by the picture's
+            # parity in the field sequence and the field order
+            from .bitstream import NAL_PREFIX_SEI
+            from .hevc.sei import write_pic_timing_sei
+            is_top = (meta["frame_num"] % 2 == 0) == (
+                cfg.source_scan_type == "tff")
+            out += nal_unit(write_pic_timing_sei(1 if is_top else 2),
+                            NAL_PREFIX_SEI)
         for s in slice_nals:
             out += nal_unit(s, nal_type)
 
@@ -748,6 +867,7 @@ class Encoder:
         info = {"poc": meta["poc"], "bytes": len(out), "qp": meta["qp"],
                 "recon": rec, "recon_out": crop, "psnr": psnr,
                 "n_waves": decisions.get("n_waves"),
+                "tile_waves": decisions.get("tile_waves"),
                 "slice_type": meta["slice_type"],
                 "substreams": len(substreams), "slices": len(slice_nals)}
         if cfg.stats_file_prefix:
@@ -759,12 +879,40 @@ class Encoder:
         return out, info
 
 
+def field_config(cfg: Config) -> Config:
+    """The configuration of encode_sequence's pictures: with field coding
+    (--source-scan-type tff|bff) a copy at half the frame's height that is
+    marked as split, else cfg itself. An encoder given to encode_sequence
+    is built on it."""
+    if cfg.source_scan_type not in ("tff", "bff") or \
+            getattr(cfg, "_fields_split", False):
+        return cfg
+    import copy
+    fcfg = copy.copy(cfg)
+    fcfg.height = cfg.height // 2
+    fcfg._fields_split = True
+    return fcfg
+
+
 def encode_sequence(cfg: Config, frames, encoder: "Encoder | None" = None,
                     device="cuda") -> tuple[bytes, list[dict]]:
     """Encode an iterable of display-order (y, cb, cr) frames to an
     Annex-B stream. A B pyramid goes through push_frame/flush; otherwise
     frame N+1's device work is queued before frame N's host entropy
-    coding (the reference pictures stay on the device)."""
+    coding (the reference pictures stay on the device). With field coding
+    (--source-scan-type tff|bff) each frame becomes two pictures of half
+    its height, its top field (even lines) first with tff, its bottom
+    field first with bff (kvazaar src/kvazaar.c:311-392); a given
+    `encoder` must then be built on field_config(cfg)."""
+    fcfg = field_config(cfg)
+    if fcfg is not cfg:
+        tff = cfg.source_scan_type == "tff"
+        fields = []
+        for (y, cb, cr) in frames:
+            top = (y[0::2], cb[0::2], cr[0::2])
+            bottom = (y[1::2], cb[1::2], cr[1::2])
+            fields.extend((top, bottom) if tff else (bottom, top))
+        return encode_sequence(fcfg, fields, encoder=encoder, device=device)
     enc = encoder if encoder is not None else Encoder(cfg, device=device)
     out = b""
     infos = []

@@ -85,9 +85,11 @@ def _morton(rows: int, cols: int) -> np.ndarray:
     return (ctb_idx * 64 + inner).astype(np.int32)
 
 
-def _hash_mask(hh: int, ww: int) -> np.ndarray:
-    """Decoded-picture-hash xor mask (spec D.3.20)."""
-    yy, xx = np.mgrid[0:hh, 0:ww]
+def _hash_mask(hh: int, ww: int, y0: int = 0, x0: int = 0) -> np.ndarray:
+    """Decoded-picture-hash xor mask (spec D.3.20) of an hh x ww
+    rectangle whose top-left sample sits at (y0, x0) of the picture (a
+    tile's; the checksum is a plain sum, so the tiles' sums add up)."""
+    yy, xx = np.mgrid[y0:y0 + hh, x0:x0 + ww]
     return ((xx & 255) ^ (yy & 255) ^ (xx >> 8) ^ (yy >> 8)).astype(np.uint32)
 
 
@@ -1820,10 +1822,13 @@ class MdIntraPipeline:
 
     @torch.inference_mode()
     def submit(self, src_y, src_cb, src_cr, qp: int | None = None,
-               qp_map=None) -> dict:
+               consts_extra: dict | None = None, qp_map=None) -> dict:
         """Run the frame's device work; the result dict holds device
         tensors for materialize. The host waits only for the wavefront's
-        periodic exit test. qp_map: the QP of each CTB (delta QP)."""
+        periodic exit test. qp_map: the QP of each CTB (delta QP);
+        consts_extra: constants that replace the pipeline's (a tile's
+        hash masks at its offset in the picture), tensors on the
+        pipeline's device."""
         consts = self._consts_for(qp)
         if qp_map is not None:
             if not self.delta_qp:
@@ -1831,6 +1836,8 @@ class MdIntraPipeline:
             consts = dict(consts)
             consts.update(consts_from_numpy(self.qp_map_arrays(qp_map),
                                             self.device))
+        if consts_extra:
+            consts = {**consts, **consts_extra}
         self.set_consts(consts)
         return self._full_impl(self._to_dev(src_y), self._to_dev(src_cb),
                                self._to_dev(src_cr))

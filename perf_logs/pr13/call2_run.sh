@@ -1,0 +1,20 @@
+#!/bin/bash
+# chip call 2, the working tree: the whole smoke, the CUDA tests, then
+# the smoke alone in an empty directory
+cd "$(dirname "$0")/../.."
+mkdir -p chiprun_out/pr13
+python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+t0=$(date +%s)
+python3 chip_smoke.py > chiprun_out/pr13/call2_chip_smoke.log 2>&1
+echo smoke_rc=$? wall_s=$(( $(date +%s) - t0 ))
+python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py > chiprun_out/pr13/call2_cuda_tests.log 2>&1
+echo tests_rc=$?
+alone=$(mktemp -d) && cp chip_smoke.py "$alone"/
+(cd "$alone" && python3 chip_smoke.py) > chiprun_out/pr13/call2_alone.log 2>&1
+echo alone_rc=$?
+rm -rf "$alone"
+tail -3 chiprun_out/pr13/call2_alone.log
+tail -2 chiprun_out/pr13/call2_cuda_tests.log
+grep -E "^smoke:|decode:|decode without|parity:|FAIL|fps|mesh \(iv\)|tiles:|SPS|phase 13" chiprun_out/pr13/call2_chip_smoke.log | cut -c1-300 | tail -70
+tail -3 chiprun_out/pr13/call2_chip_smoke.log

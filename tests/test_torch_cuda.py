@@ -10,13 +10,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (GOP8, GOP_OBA, INTRA_LEAVES, LCU_OBA,  # noqa
-                        LOWDELAY, OPEN_GOP, P_SMP, SMOKE_ROI, TOOL_LDB,
-                        TOOL_ROW, TRSKIP_FCT, VAQ_ROI, VARIANTS_416, WPP_RC,
+from chip_smoke import (EXTRAS_416, GOP8, GOP_OBA,  # noqa: E402
+                        INTRA_LEAVES, LCU_OBA, LOWDELAY, OPEN_GOP, P_SMP,
+                        SMOKE_ROI, TOOL_LDB, TOOL_ROW, TRSKIP_FCT, VAQ_ROI,
+                        VARIANTS_416, WPP_RC,
                         compare_devices, kernel_errors, kernel_inputs,
                         leaf_frames, main10_frames, mixed_frames,
-                        screen_frames, split_motion_frames, tie_inputs,
-                        tie_planes)
+                        screen_frames, smoke_key, split_motion_frames,
+                        tie_inputs, tie_planes)
 from kvazaar_tpu_torch.ops import me  # noqa: E402
 
 H, W = 64, 128
@@ -265,3 +266,36 @@ def test_cuda_intra_variants_equal_cpu(name):
         for p, f in zip(pics, frames):
             for a, b in zip(p.planes, f):
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [e[0] for e in EXTRAS_416])
+def test_cuda_crypto_field_tiles_equal_cpu(name):
+    """The three intra features of --crypto (128x64), bottom field first
+    (128x128 frames, two fields each) and 2x2 tiles with --vaq 8 (256x128;
+    chip_smoke.py's EXTRAS_416) give the CPU path's streams and maps on
+    the GPU, and decode hash-exactly (the encrypted stream with its
+    key)."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    _, cfg, n = {e[0]: e for e in EXTRAS_416}[name]
+    w, h = (256, 128) if "tiles" in cfg else (
+        (128, 128) if "source_scan_type" in cfg else (W, H))
+    stream, rows = compare_devices(mixed_frames(n, w, h), w, h, **cfg)
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    kw = (dict(crypto=cfg["crypto"], crypto_key=smoke_key())
+          if "crypto" in cfg else {})
+    pics = HEVCDecoder(**kw).decode(stream)
+    assert len(pics) == len(rows) and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_over_one_card_twice():
+    """The multi-device dryrun over cuda:0 twice (or two cards): a 2x1
+    grid through MeshTiledIntraPipeline, hash-exact and byte-identical to
+    TiledIntraPipeline's stream on the card and to the CPU's."""
+    _need_cuda()
+    from kvazaar_tpu_torch.parallel import dryrun
+    r = dryrun.run(2, "cuda")
+    assert r["mesh"] == (1, 2) and len(r["devices"]) == 2
+    assert r["stream"] == dryrun.run(2, "cpu")["stream"]

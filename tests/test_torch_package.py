@@ -80,10 +80,8 @@ def test_encoder_targets_cuda_by_default():
     assert Encoder(cfg, device="cpu")._pipeline.device.type == "cpu"
 
 
-UNSUPPORTED = {
-    "crypto": dict(crypto="on"), "field": dict(source_scan_type="tff"),
-    "tiles": dict(tiles=(2, 1)), "ctu16": dict(ctu_size=16),
-}
+UNSUPPORTED = {"ctu16": dict(ctu_size=16)}
+KEY = ",".join(str(i) for i in range(16))
 DATA = os.path.join(ROOT, "tests", "data")
 CQM = os.path.join(DATA, "torch_cqm.txt")
 FCT = os.path.join(DATA, "torch_fct_table.json")
@@ -137,6 +135,32 @@ OPTION_SETS = {
     "trskip": (("transform-skip", "1"),),
     "trskip_tiles": (("transform-skip", "1"), ("tiles", "2x1")),
     "fct": (("fast-coeff-table", FCT),),
+    "crypto_on": (("crypto", "on"),),
+    "crypto_key": (("crypto", "on"), ("key", KEY)),
+    "crypto_intra_features": (("crypto", "intra_pred_modes+trans_coeffs"),
+                              ("key", KEY)),
+    "crypto_bad_feature": (("crypto", "intra_modes"),),
+    "crypto_short_key": (("crypto", "on"), ("key", "1,2,3")),
+    "crypto_bad_key": (("crypto", "on"), ("key", "x" * 16)),
+    "crypto_tiles": (("crypto", "on"), ("tiles", "2x1")),
+    "field_tff": (("source-scan-type", "tff"),),
+    "field_bff": (("source-scan-type", "bff"),),
+    "field_gop8": (("source-scan-type", "tff"), ("gop", "8")),
+    "field_lp": (("source-scan-type", "bff"), ("gop", "lp-g4d3t1")),
+    "field_tiles": (("source-scan-type", "tff"), ("tiles", "2x1")),
+    "tiles": (("tiles", "2x1"),),
+    "tiles_p1": (("tiles", "2x1"), ("period", "1")),
+    "tiles_wpp": (("tiles", "2x1"), ("wpp", "1")),
+    "slices_tiles": (("tiles", "2x1"), ("slices", "tiles")),
+    "tiles_vaq": (("tiles", "2x1"), ("vaq", "4")),
+    "tiles_bitrate": (("tiles", "2x1"), ("bitrate", "500000")),
+    "tiles_gop8": (("tiles", "2x1"), ("gop", "8")),
+    "tiles_smp": (("tiles", "2x1"), ("smp", "1")),
+    "tiles_lossless": (("tiles", "2x1"), ("lossless", "1")),
+    "tiles_main10": (("tiles", "2x1"), ("input_bitdepth", 10)),
+    "tiles_scaling": (("tiles", "2x1"), ("scaling-list", "default")),
+    "tiles_sao_rdoq": (("tiles", "2x1"), ("sao_type", "full"),
+                       ("rdoq", "1"), ("signhide", "1")),
 }
 
 
@@ -305,3 +329,26 @@ def test_cli_encodes_on_cpu(tmp_path):
     assert r.returncode == 0, r.stderr
     pics = HEVCDecoder().decode(out.read_bytes())
     assert len(pics) == 2 and all(p.hash_ok for p in pics)
+
+
+def test_cli_forces_ctb64_for_quadtree_tools(tmp_path):
+    """As the JAX CLI does (kvazaar_tpu/__main__.py:167-169), --vaq (like
+    --tiles, --roi, --lossless, 10-bit input and scaling lists) codes at
+    CTB 64 whatever --ctu says: --ctu 16 --vaq 4 gives --vaq 4's
+    stream."""
+    rng = np.random.RandomState(5)
+    yuv = tmp_path / "in.yuv"
+    yuv.write_bytes(rng.randint(0, 256, 64 * 64 * 3 // 2).astype(
+        np.uint8).tobytes())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    streams = []
+    for extra in ([], ["--ctu", "16"]):
+        out = tmp_path / f"out{len(extra)}.hevc"
+        r = subprocess.run([sys.executable, "-m", "kvazaar_tpu_torch", "-i",
+                            str(yuv), "--input-res", "64x64", "-o", str(out),
+                            "--vaq", "4", "--device", "cpu"] + extra,
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=300)
+        assert r.returncode == 0, r.stderr
+        streams.append(out.read_bytes())
+    assert streams[0] == streams[1]

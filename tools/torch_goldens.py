@@ -99,6 +99,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+from chip_smoke import SMOKE_KEY  # noqa: E402
 
 W, H, N_FRAMES = 128, 64, 3
 OUT = os.path.join(ROOT, "tests", "data", "torch_golden_slice.npz")
@@ -112,6 +113,7 @@ OUT_PRESETS = os.path.join(ROOT, "tests", "data",
 OUT_RC = os.path.join(ROOT, "tests", "data", "torch_golden_rc.npz")
 OUT_VARIANTS = os.path.join(ROOT, "tests", "data",
                             "torch_golden_variants.npz")
+OUT_EXTRAS = os.path.join(ROOT, "tests", "data", "torch_golden_extras.npz")
 FCT_TABLE = os.path.join(ROOT, "tests", "data", "torch_fct_table.json")
 CQM_FILE = os.path.join(ROOT, "tests", "data", "torch_cqm.txt")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
@@ -1398,17 +1400,139 @@ def write_variants_golden(path: str = OUT_VARIANTS, only=()) -> None:
         pool.shutdown()
     _save(path, data)
 
+
+# selective encryption, field coding and tiles. EXTRA_KEYS: every coded
+# frame's maps with the per-CTB QPs (the JAX tile stitch carries no
+# mode_map4). EXTRA_CONFIGS: (configuration, content, width, height,
+# frames): "crypto_intra" the three intra features of --crypto with
+# chip_smoke.py's --key SMOKE_KEY on one frame; "crypto_on" every
+# feature on IDR + 2 B; "tff" and "bff" field coding, each frame two
+# fields of 128x64 (IDR + 3 B); "tff_frames" the JAX CLI's and capi.py's field coding, which
+# feed whole 128x64 frames to submit_frame (no split: WHOLE_FRAMES);
+# "tiles*" a 2x2 grid of 128x64 tiles: plain, with SAO full, with
+# RDOQ and sign hiding, with --slices tiles, --vaq 8, --crypto on and
+# --pu-depth-intra 1-4 (on the NxN mosaic intra_frames("detail")), and
+# "tiles21" a 2x1 grid over 200x136 (4x3 CTBs after padding).
+EXTRA_KEYS = RC_KEYS
+CRYPTO_INTRA = "intra_pred_modes+trans_coeffs+trans_coeff_signs"
+TILES = dict(tiles=(2, 2))
+EXTRA_CONFIGS = {
+    "crypto_intra": (dict(crypto=CRYPTO_INTRA, crypto_key=SMOKE_KEY),
+                     "mixed", 128, 128, 1),
+    "crypto_on": (dict(crypto="on", crypto_key=SMOKE_KEY), "mixed", 128,
+                  64, 3),
+    "tff": (dict(source_scan_type="tff"), "mixed", 128, 128, 2),
+    "bff": (dict(source_scan_type="bff"), "mixed", 128, 128, 2),
+    "tff_frames": (dict(source_scan_type="tff"), "mixed", 128, 64, 2),
+    "tiles": (TILES, "mixed", 256, 128, 2),
+    "tiles_sao": (dict(TILES, qp=27, sao_type="full"), "mixed", 256, 128,
+                  1),
+    "tiles_rdoq": (dict(TILES, qp=27, rdoq_enable=True,
+                        signhide_enable=True), "mixed", 256, 128, 1),
+    "tiles21": (dict(tiles=(2, 1)), "mixed", 200, 136, 1),
+    "tiles_slices": (dict(TILES, slices="tiles"), "mixed", 256, 128, 1),
+    "tiles_vaq": (dict(TILES, vaq=8), "mixed", 256, 128, 2),
+    "tiles_crypto": (dict(TILES, crypto="on", crypto_key=SMOKE_KEY),
+                     "mixed", 256, 128, 1),
+    "tiles_nxn": (dict(TILES, pu_depth_intra=(1, 4)), "detail", 256, 128,
+                  1),
+}
+
+
+WHOLE_FRAMES = ("tff_frames",)
+
+
+def extra_frames(name: str) -> list:
+    _, kind, w, h, n = EXTRA_CONFIGS[name]
+    if kind == "detail":
+        return intra_frames(kind, n, w, h)
+    from chip_smoke import mixed_frames
+    return mixed_frames(n, w, h)
+
+
+def jax_extra_stream(name: str) -> tuple[bytes, list[dict]]:
+    """An EXTRA_CONFIGS stream of kvazaar_tpu through encode_sequence
+    (WHOLE_FRAMES: encode_frame a frame); returns (stream, the maps of
+    EXTRA_KEYS per coded frame). Field coding's encoder is built on the
+    field configuration, as encode_sequence builds it."""
+    import copy
+    from kvazaar_tpu.api import Encoder, encode_sequence
+    from kvazaar_tpu.cfg import Config
+    frames = extra_frames(name)
+    h, w = frames[0][0].shape
+    cfg = Config(width=w, height=h, **EXTRA_CONFIGS[name][0])
+    ecfg = cfg
+    if cfg.source_scan_type != "progressive" and name not in WHOLE_FRAMES:
+        ecfg = copy.copy(cfg)
+        ecfg.height = h // 2
+        ecfg._fields_split = True
+    enc = Encoder(ecfg)
+    decs = []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        decs.append({k: np.asarray(v) for k, v in
+                     enc._last_decisions.items() if k in EXTRA_KEYS})
+        return out
+    enc.finalize_frame = record
+    if name in WHOLE_FRAMES:
+        return b"".join(enc.encode_frame(*f)[0] for f in frames), decs
+    stream, _ = encode_sequence(cfg, frames, encoder=enc)
+    return stream, decs
+
+
+def _extra_part(part: str) -> dict:
+    import time
+    t = time.perf_counter()
+    data = _stream_arrays(part + "_", *jax_extra_stream(part))
+    print(f"{part}: {time.perf_counter() - t:.1f} s", flush=True)
+    return data
+
+
+# the three B streams share one compiled JAX B program in one worker
+EXTRA_PARTS = (("crypto_on", "tff", "bff", "tff_frames"),
+               ("crypto_intra", "tiles", "tiles_sao", "tiles_rdoq",
+                "tiles21", "tiles_slices", "tiles_vaq", "tiles_crypto",
+                "tiles_nxn"))
+
+
+def _extra_lane(parts) -> dict:
+    data = {}
+    for part in parts:
+        data.update(_extra_part(part))
+    return data
+
+
+def write_extras_golden(path: str = OUT_EXTRAS, only=()) -> None:
+    """Two workers side by side, each a fresh process: the B streams in
+    one, the all-intra streams in the other. `only`: run these parts and
+    merge them into the existing file."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = multiprocessing.get_context("spawn")
+    lanes = [[p for p in lane if not only or p in only]
+             for lane in EXTRA_PARTS]
+    with ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        futs = [pool.submit(_extra_lane, lane) for lane in lanes if lane]
+        data = dict(np.load(path)) if only else {}
+        for f in futs:
+            data.update(f.result())
+    _save(path, data)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
-                             "presets", "rc", "variants"]
-    if which[0] in ("rc", "variants") and len(which) > 1:
-        # python tools/torch_goldens.py rc|variants <part> ...: re-run
-        # those parts
-        {"rc": write_rc_golden, "variants": write_variants_golden}[
-            which[0]](only=tuple(which[1:]))
+                             "presets", "rc", "variants", "extras"]
+    if which[0] in ("rc", "variants", "extras") and len(which) > 1:
+        # python tools/torch_goldens.py rc|variants|extras <part> ...:
+        # re-run those parts
+        {"rc": write_rc_golden, "variants": write_variants_golden,
+         "extras": write_extras_golden}[which[0]](only=tuple(which[1:]))
         sys.exit(0)
     for w in which:
         {"slice": write_slice_golden, "tools": write_tools_golden,
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
          "gop": write_gop_golden, "presets": write_presets_golden,
-         "rc": write_rc_golden, "variants": write_variants_golden}[w]()
+         "rc": write_rc_golden, "variants": write_variants_golden,
+         "extras": write_extras_golden}[w]()
