@@ -92,7 +92,7 @@ Phases (each prints its lines; any failure exits non-zero):
    row (2 frames) and --gop 4 --wpp --slices wpp with OBA rate control
    and the intra bit allocation (5 frames: IDR, P 4, B 2 1 3);
 12. the remaining intra variants: (i) --transform-skip --pu-depth-intra
-   1-4 with the CPU tests' --fast-coeff-table at QP 27, IDR + 2 B of
+   1-4 with the CPU tests' --fast-coeff-table at QP 27, IDR + 1 B of
    screen content at 1920x1080 (8 me_refine and 12 me_eval launches a B
    frame; the Python writers), hash-exact, transform skip chosen on some
    TU of the IDR; (ii) -p 1 --input-bitdepth 10 --scaling-list default
@@ -111,18 +111,33 @@ Phases (each prints its lines; any failure exits non-zero):
    pic_timing SEI a picture, hash-exact; (iii) --tiles 2x2 --slices
    tiles with the tool row, 1 frame through TiledIntraPipeline, a slice
    segment a tile, hash-exact, each tile's waves and submit time; (iv)
-   the multi-device dryrun's 4x4 grid of 320x192 tiles (2 frames)
+   the multi-device dryrun's 4x4 grid of 320x192 tiles (its first frame)
    through MeshTiledIntraPipeline over cuda:0 twice (or the CUDA devices
    present where there are two or more), hash-exact and byte-identical
    to the tiled path's stream of the same frames on the CPU (coded in
    the CPU worker beside (i)-(iii)); (v) on cuda and on the CPU at
    416x240 with the same streams and maps, hash-exact: the three intra
-   features of --crypto, bottom field first and 2x2 tiles with --vaq 8.
-The hash-exact decodes of phases 4-13's encodes run in a worker process
-beside the later phases, and are checked after phase 13; the CPU half of
-every cuda-against-CPU run runs in another, beside its cuda half.
+   features of --crypto, bottom field first and 2x2 tiles with --vaq 8;
+14. the 16x16-grid pipelines (--ctu 16) and the host route of CTB 32,
+   the kernel launch counters read around each encode (the grid path
+   launches neither kernel): (i) IDR + 3 P at 1920x1080 (padded to 1088),
+   some inter block in every P frame; (ii) -p 24 --gop 8 with the tool
+   row, 9 frames at 1080p through push_frame/flush (IDR, then P 8 and
+   B 4 2 1 3 6 5 7 on a union stack of four references); (iii) -p 1 with
+   frame_batch 2, 2 frames at 1080p through one pass of the waves, the
+   stream equal to the unbatched one; per frame the bytes, PSNR, waves,
+   inter share and the submit, wavefront and host ms; (iv) (i)-(iii) at
+   416x240 on cuda and on the CPU: the same streams and maps; (v) CTB 32,
+   2 frames at 416x240 on the host route (no pipeline).
+Phases 10 and 14, and phases 12 and 13, run in two child processes of
+their own (`--phases`, CHILD_GROUPS) beside phases 4-9 and 11, from the
+end of phase 3 on, and their output is printed after phase 11's; phase
+5's CPU half runs beside phases 3-4. The hash-exact decodes of each
+process's encodes run in a worker process beside its later phases (phase
+14's 1080p streams in one each) and are checked at its end; the CPU half
+of every cuda-against-CPU run runs in another, beside its cuda half.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4 and 6-13; me_eval's pair
+over the encodes of phases 4 and 6-14; me_eval's pair
 and one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
@@ -234,6 +249,15 @@ EXTRAS_416 = (("crypto intra features",
                     crypto_key=SMOKE_KEY), 1),
               ("bff", dict(source_scan_type="bff"), 1),
               ("tiles 2x2 vaq", dict(tiles=(2, 2), vaq=8), 1))
+# phase 14, the 16x16-grid pipelines (--ctu 16) and the host route of
+# CTB 32: (i) IDR + 3 P; (ii) the B pyramid of bench.py's scenario 3 (-p
+# 24 --gop 8) with the tool row; (iii) -p 1 with frame_batch 2; (iv) their
+# 416x240 twins on cuda and on the CPU; (v) CTB 32, every frame intra on
+# the host
+GRID = dict(ctu_size=16)
+GRID_GOP8 = dict(TOOL_ROW, **GOP8, ctu_size=16)
+GRID_BATCH = dict(ctu_size=16, intra_period=1, frame_batch=2)
+HOST32 = dict(ctu_size=32)
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -547,16 +571,19 @@ def encode_coded(frames, w, h, dev, cfg):
     return coded
 
 
-def compare_devices(frames, w, h, **cfg):
+def compare_devices(frames, w, h, cpu=None, **cfg):
     """Encode display-order frames through encode_sequence with the
     configuration cfg (Config options; the defaults when empty) on cuda
     and on the CPU, where the kernels' plain versions run; the CPU encode
-    runs in the "cpu" worker process beside the cuda one. Returns the
-    cuda stream and, per coded frame (coding order), whether both chunks
-    are identical, the decision maps that differ, the waves of the
-    wavefront on each device, and the cuda encode's 8x8 cells inside the
-    picture by size code."""
-    cpu = worker_pool("cpu").submit(encode_coded, frames, w, h, "cpu", cfg)
+    runs in the "cpu" worker process beside the cuda one (cpu: its future
+    where it was submitted earlier). Returns the cuda stream and, per
+    coded frame (coding order), whether both chunks are identical, the
+    decision maps that differ, the waves of the wavefront on each device,
+    and the cuda encode's 8x8 cells inside the picture by size code (CTB
+    64)."""
+    if cpu is None:
+        cpu = worker_pool("cpu").submit(encode_coded, frames, w, h, "cpu",
+                                        cfg)
     res = {"cuda": encode_coded(frames, w, h, "cuda", cfg),
            "cpu": cpu.result()}
     rows = [{"same_stream": ca == cb,
@@ -565,7 +592,7 @@ def compare_devices(frames, w, h, **cfg):
              "waves": (wa, wb),
              "sizes": dict(zip(*(a.tolist() for a in np.unique(
                  ma["size_map8"][:-(-h // 8), :-(-w // 8)],
-                 return_counts=True))))}
+                 return_counts=True)))) if "size_map8" in ma else {}}
             for (ca, ma, wa), (cb, mb, wb) in zip(res["cuda"], res["cpu"])]
     return b"".join(c for c, _, _ in res["cuda"]), rows
 
@@ -973,9 +1000,10 @@ def encode_timed(torch, me, cfg, frames, label, native=True,
     return launches, infos, maps
 
 
-# The hash-exact decodes of the encode_timed runs (the Python decoder,
-# 1-3 s a 1080p frame) run in one worker process ("decode") beside the
-# next phases; main() waits for them and checks them before it reports.
+# The hash-exact decodes of the encode_timed and encode_grid runs (the
+# Python decoder, 1-15 s a 1080p frame) run in one worker process
+# ("decode"; phase 14's 1080p streams in one each) beside the next
+# phases; main() waits for them and checks them before it reports.
 # The CPU halves of compare_devices run in another ("cpu", CPU_THREADS
 # intra-op threads) beside their cuda halves.
 _DECODES: list = []
@@ -990,7 +1018,8 @@ def _cpu_worker_init():
 
 
 def worker_pool(name: str):
-    """The one-process pool (spawn) of that name, "decode" or "cpu"."""
+    """The one-process pool (spawn) of that name: "decode" (and phase
+    14's "decode_grid_*") or "cpu"."""
     if name not in _POOLS:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -1342,7 +1371,7 @@ def stream_sps(stream: bytes):
 
 
 def phase_variants(torch, me):
-    """The remaining intra variants: (i) TRSKIP_FCT, IDR + 2 B of
+    """The remaining intra variants: (i) TRSKIP_FCT, IDR + 1 B of
     screen_frames at 1080p through the Python writers, hash-exact, with
     transform skip chosen in the IDR (its ts8 map) and 8 me_refine and 12
     me_eval launches a B frame; (ii) MAIN10_SCALING, 1 frame of
@@ -1352,7 +1381,7 @@ def phase_variants(torch, me):
     reconstruction the source. Returns the launches of (i) and (ii)."""
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     li, infos, maps = encode_timed(torch, me, TRSKIP_FCT,
-                                   screen_frames(3, W, H),
+                                   screen_frames(2, W, H),
                                    "transform skip + fct (i)", native=False)
     ts8 = maps[0]["ts8"]
     print(f"  IDR transform-skip TUs: NxN luma {int(ts8[..., :4].sum())}, "
@@ -1410,7 +1439,7 @@ def phase_extras(torch, me):
     bottom, top, bottom), hash-exact 540-line pictures; (iii)
     TILES_SLICES, 1 frame through TiledIntraPipeline, a slice segment a
     tile, hash-exact, each tile's waves and submit time; (iv) the
-    dryrun's 4x4 grid at 1280x768 (2 frames) through
+    dryrun's 4x4 grid at 1280x768 (its first frame) through
     MeshTiledIntraPipeline over cuda:0 twice (or the CUDA devices present
     where there are two or more), hash-exact and byte-identical to
     TiledIntraPipeline's stream of the same frames on the CPU (coded in
@@ -1420,7 +1449,7 @@ def phase_extras(torch, me):
     from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
     from kvazaar_tpu_torch.parallel import dryrun
     t13 = time.perf_counter()
-    tiled_cpu = worker_pool("cpu").submit(dryrun.tiled_stream, 4, "cpu")
+    tiled_cpu = worker_pool("cpu").submit(dryrun.tiled_stream, 4, "cpu", 1)
     t = time.perf_counter()
     frames = mixed_frames(3, W, H)
     key = dict(crypto="on", crypto_key=smoke_key())
@@ -1457,7 +1486,7 @@ def phase_extras(torch, me):
         fail("tiles: not a slice segment a tile")
     t = time.perf_counter()
     devs = dryrun.dryrun_devices(max(2, torch.cuda.device_count()), "cuda")
-    stream, infos, mesh, mesh_s = dryrun.mesh_stream(devs, 4)
+    stream, infos, mesh, mesh_s = dryrun.mesh_stream(devs, 4, 1)
     ref, cpu_s = tiled_cpu.result()
     print(f"mesh (iv): devices {[str(d) for d in devs]}, mesh {mesh}, "
           f"{len(infos)} frames, {len(stream)} bytes, tiles a frame "
@@ -1485,11 +1514,159 @@ def phase_extras(torch, me):
     return {k: li[k] + lii[k] + liii[k] for k in li}
 
 
-def phase_device_parity():
-    """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
-    decision maps."""
+def encode_grid(torch, me, cfg, frames, label, decode="decode"):
+    """Encode display-order frames through encode_sequence on cuda (the
+    host route of CTB 32 runs nothing there) with the Config options cfg,
+    the kernel launch counters set to 0 just before and read just after:
+    the grid pipelines launch neither kernel. Prints per coded frame its
+    kind, display index, POC, QP, bytes, PSNR, waves, and the host-clock
+    ms (synchronized) of its submit call (frame_batch: one call a batch),
+    its wavefront and its host entropy coding; queues the stream's
+    hash-exact decode (check_decodes) in the worker pool named decode
+    (None: no decode). Returns (launches, stream, infos, per coded frame
+    the chunk, display index and inter share)."""
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence, field_config
+    from kvazaar_tpu_torch.cfg import Config
+    h, w = frames[0][0].shape
+    frame_cfg = Config(width=w, height=h, **cfg)
+    enc = Encoder(field_config(frame_cfg), device="cuda")
+    times: dict = {}
+    if enc._pipeline is not None:
+        wrap_timed(torch, enc._pipeline,
+                   {"submit_many": "submit", "submit_inter": "submit",
+                    "submit_inter_b": "submit", "_wave_loop": "wavefront"},
+                   times)
+    wrap_timed(torch, enc, {"finalize_frame": "host"}, times)
+    coded = []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        d = enc._last_decisions or {}
+        coded.append({"chunk": out[0], "disp": meta["frame_num"],
+                      "inter": (float(np.mean(d["is_inter"]))
+                                if "is_inter" in d else None)})
+        return out
+    enc.finalize_frame = record
+    me.me_refine.launches = 0
+    me.me_eval.launches = 0
+    me.me_eval.one_list_launches = 0
+    t0 = time.perf_counter()
+    stream, infos = encode_sequence(frame_cfg, frames, encoder=enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"me_refine": me.me_refine.launches,
+                "me_eval": me.me_eval.launches,
+                "me_eval_one_list": me.me_eval.one_list_launches}
+    print(f"{label}: {len(infos)} frames at {w}x{h} in {wall:.3f} s = "
+          f"{len(infos) / wall:.4f} fps, {len(stream)} bytes, pipeline "
+          f"{type(enc._pipeline).__name__}, launches {launches}, native "
+          f"slices {enc.native_slices}; submit calls ms "
+          f"{[round(x, 1) for x in times.get('submit', [])]}", flush=True)
+    for k, (i, c) in enumerate(zip(infos, coded)):
+        kind = {2: "IDR", 1: "P", 0: "B"}[i["slice_type"]]
+        wav = times.get("wavefront", [])
+        host = times["host"][k]
+        print(f"  frame {k} {kind} (display {c['disp']}, POC {i['poc']}, "
+              f"QP {i['qp']}): {i['bytes']} bytes, PSNR Y "
+              f"{i['psnr'][0]:.4f} U {i['psnr'][1]:.4f} V "
+              f"{i['psnr'][2]:.4f}, waves {i['n_waves']}, inter blocks "
+              f"{c['inter']}, substreams "
+              f"{i['substreams']} in {i['slices']} slice segment(s); "
+              + (f"wavefront {wav[k]:.1f} ms, " if k < len(wav) else "")
+              + f"host {host:.1f} ms", flush=True)
+    if any(launches.values()):
+        fail(f"{label}: the grid path launched a kernel: {launches}")
+    if decode:
+        recon = [tuple(np.asarray(a) for a in i["recon_out"])
+                 for i in infos]
+        _DECODES.append((label, len(infos), worker_pool(decode).submit(
+            decode_check, stream, recon, [c["disp"] for c in coded])))
+    return launches, stream, infos, coded
+
+
+def phase_grid(torch, me):
+    """The 16x16-grid pipelines (--ctu 16) and the host route of CTB 32:
+    (i) GRID, IDR + 3 P of mixed_frames at 1920x1080 (padded to 1088 with
+    a conformance window), some P block inter and some intra; (ii)
+    GRID_GOP8, 9 frames at 1080p through push_frame/flush (IDR, P 8, B 4
+    2 1 3 6 5 7); (iii) GRID_BATCH, 2 frames at 1080p through one pass of
+    the waves, the stream equal to the unbatched one; each hash-exact;
+    (iv) (i)-(iii) at 416x240 on cuda and on the CPU: the same streams and
+    maps; (v) HOST32, 2 frames at 416x240 on the host, hash-exact. Returns
+    the launches (none)."""
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    t14 = time.perf_counter()
+    twins = [(label, cfg, n, worker_pool("cpu").submit(
+        encode_coded, mixed_frames(n, 416, 240), 416, 240, "cpu", cfg))
+        for label, cfg, n in (("ctu 16 P (iv)", GRID, 4),
+                              ("ctu 16 gop 8 (iv)", GRID_GOP8, 9),
+                              ("ctu 16 batch (iv)", GRID_BATCH, 2))]
+    runs = []
+    # (ii) first: its decode is the longest (about 70 s a 1080p GOP); each
+    # 1080p decode runs in a worker of its own beside the phase
     t = time.perf_counter()
-    _, rows = compare_devices(mixed_frames(2, W, H), W, H)
+    lii, _, infos, coded = encode_grid(torch, me, GRID_GOP8,
+                                       mixed_frames(9, W, H),
+                                       "ctu 16 gop 8 tool row (ii)",
+                                       decode="decode_grid_ii")
+    runs.append(lii)
+    order = [c["disp"] for c in coded]
+    print(f"ctu 16 (ii): coding order {order}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if order != [0, 8, 4, 2, 1, 3, 6, 5, 7] or \
+            sum(i["slice_type"] == 0 for i in infos) != 7:
+        fail("ctu 16 (ii): not the GOP 8 pyramid's coding order")
+    t = time.perf_counter()
+    li, _, infos, coded = encode_grid(torch, me, GRID,
+                                      mixed_frames(4, W, H),
+                                      "ctu 16 IDR + 3 P (i)",
+                                      decode="decode_grid_i")
+    runs.append(li)
+    print(f"ctu 16 (i): {time.perf_counter() - t:.1f} s", flush=True)
+    if [i["slice_type"] for i in infos] != [2, 1, 1, 1]:
+        fail("ctu 16 (i): not IDR + 3 P")
+    if not all(c["inter"] for c in coded[1:]):
+        fail("ctu 16 (i): a P frame coded no inter block")
+    t = time.perf_counter()
+    frames = mixed_frames(2, W, H)
+    liii, batched, _, _ = encode_grid(torch, me, GRID_BATCH, frames,
+                                      "ctu 16 frame_batch 2 (iii)",
+                                      decode="decode_grid_iii")
+    runs.append(liii)
+    # equal to the batched stream, which is decoded
+    _, single, _, _ = encode_grid(torch, me, dict(GRID_BATCH,
+                                                  frame_batch=0), frames,
+                                  "ctu 16 unbatched (iii)", decode=None)
+    print(f"ctu 16 (iii): batched stream equal to the unbatched one "
+          f"{batched == single}; {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if batched != single:
+        fail("ctu 16 (iii): frame_batch changed the stream")
+    for label, cfg, n, cpu in twins:
+        t = time.perf_counter()
+        stream, rows = compare_devices(mixed_frames(n, 416, 240), 416, 240,
+                                       cpu=cpu, **cfg)
+        parity_rows(label, rows, t)
+        pics = HEVCDecoder().decode(stream)
+        if len(pics) != n or not all(p.hash_ok for p in pics):
+            fail(f"{label}: the stream does not decode hash-exactly")
+    t = time.perf_counter()
+    lv, _, infos, _ = encode_grid(torch, me, HOST32,
+                                  mixed_frames(2, 416, 240),
+                                  "ctu 32 host route (v)")
+    runs.append(lv)
+    print(f"ctu 32 (v): {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    return {k: sum(r[k] for r in runs) for k in li}
+
+
+def phase_device_parity(cpu):
+    """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
+    decision maps; cpu: the CPU half's future (encode_coded in the "cpu"
+    worker, submitted before phase 3 so that it runs beside phases 3-4)."""
+    t = time.perf_counter()
+    _, rows = compare_devices(mixed_frames(2, W, H), W, H, cpu=cpu)
     for i, r in enumerate(rows):
         print(f"device parity {W}x{H} frame {i}: stream identical "
               f"{r['same_stream']}, differing maps {r['differing_maps']}, "
@@ -1529,8 +1706,81 @@ def open_device(torch):
     return me, kind, name_limit, rates
 
 
+# phases run in child processes beside the main chain once the kernel
+# timings of phase 3 are taken: the card is mostly idle during the
+# wavefronts (launch-bound eager ops), so the phases' host dispatch runs
+# in parallel; each group a process, its phases in order
+CHILD_PHASES = {"presets": "phase_presets", "variants": "phase_variants",
+                "extras": "phase_extras", "grid": "phase_grid"}
+CHILD_GROUPS = (("presets", "grid"), ("variants", "extras"))
+_CHILDREN: list = []
+
+
+def run_child(names) -> None:
+    """The child process of start_children: open the card, run the named
+    phases (CHILD_PHASES) with the CPU halves of their cuda-against-CPU
+    runs on 2 intra-op threads, check their decodes, and print their
+    summed kernel launches as a JSON line last."""
+    import torch
+    global CPU_THREADS
+    CPU_THREADS = 2
+    me = open_device(torch)[0]
+    runs = [globals()[CHILD_PHASES[n]](torch, me) for n in names]
+    check_decodes()
+    print(json.dumps({"launches": {k: sum(r[k] for r in runs)
+                                   for k in runs[0]}}), flush=True)
+
+
+def start_children() -> None:
+    """Start a child process a group of CHILD_GROUPS, each in a session
+    of its own (with its worker processes), its output to a temporary
+    file; atexit stops any still running, workers included."""
+    import atexit
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    atexit.register(_stop_children)
+    for names in CHILD_GROUPS:
+        log = tempfile.TemporaryFile()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--phases", ",".join(names)], cwd=here, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        _CHILDREN.append((names, proc, log))
+
+
+def _stop_children() -> None:
+    import signal
+    for _, proc, _ in _CHILDREN:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def join_children() -> list:
+    """Wait for the child processes, print their output, fail unless each
+    exited 0; returns their kernel launches."""
+    t = time.perf_counter()
+    runs = []
+    for names, proc, log in _CHILDREN:
+        rc = proc.wait()
+        log.seek(0)
+        out = log.read().decode(errors="replace").rstrip("\n").split("\n")
+        print(f"--- phases {', '.join(names)} (a child process) ---",
+              flush=True)
+        print("\n".join(out), flush=True)
+        if rc != 0:
+            fail(f"the child process of phases {names} exited {rc}")
+        runs.append(json.loads(out[-1])["launches"])
+    print(f"children: waited {time.perf_counter() - t:.1f} s after the "
+          "main chain", flush=True)
+    return runs
+
+
 def main() -> None:
     import torch
+    if "--phases" in sys.argv:
+        run_child(sys.argv[sys.argv.index("--phases") + 1].split(","))
+        return
     t_start = time.perf_counter()
     me, kind, name_limit, rates = open_device(torch)
     from kvazaar_tpu_torch import native
@@ -1553,19 +1803,22 @@ def main() -> None:
           f"native entropy coder in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    # phase 5's CPU half (about a minute) runs beside phases 3-4
+    parity_cpu = worker_pool("cpu").submit(encode_coded,
+                                           mixed_frames(2, W, H), W, H,
+                                           "cpu", {})
     kern = phase_kernels(me, torch, rates)
+    start_children()
     main_launches, main_maps = phase_main(torch, me)
     runs = [main_launches]
-    phase_device_parity()
+    phase_device_parity(parity_cpu)
     runs.append(phase_tools(torch, me))
     runs.append(phase_lowdelay(torch, me))
     runs.append(phase_p(torch, me))
     runs.append(phase_gop(torch, me))
-    runs.append(phase_presets(torch, me))
     runs.append(phase_rc(torch, me, main_maps))
-    runs.append(phase_variants(torch, me))
-    runs.append(phase_extras(torch, me))
     check_decodes()
+    runs.extend(join_children())
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s; kernel launches "
           f"of the encodes {launches}", flush=True)

@@ -56,8 +56,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--hash", choices=["checksum", "md5", "none"],
                    default="checksum")
     p.add_argument("--ctu", type=int, default=None, choices=[16, 64],
-                   help="CTU size (default 64 = quadtree flagship path; "
-                        "B-pyramid GOPs currently ride ctu 16)")
+                   help="CTU size (default 64 = the quadtree pipelines; "
+                        "16 = the fixed 16x16 grid pipelines)")
     p.add_argument("--aud", dest="aud", action="store_true",
                    help="write access unit delimiters")
     p.add_argument("--vps-period", dest="vps_period", type=int, default=0,
@@ -184,7 +184,9 @@ def main(argv=None) -> int:
     psnr_acc = np.zeros(3)
     bits = 0
     t0 = time.time()
-    # frame N+1's device work is queued before frame N's entropy coding
+    # frame N+1's device work is queued before frame N's entropy coding;
+    # the host route (CTB 32) codes frame by frame
+    overlap = enc.use_device
     pending = None
 
     def _emit_done(pair):
@@ -218,7 +220,10 @@ def main(argv=None) -> int:
         meta = enc.submit_frame(*frame)
         if pending is not None:
             _emit(pending)
-        pending = meta
+        if overlap:
+            pending = meta
+        else:
+            _emit(meta)
     if enc.gop_enabled:
         for pair in enc.flush():
             _emit_done(pair)

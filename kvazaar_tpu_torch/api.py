@@ -1,41 +1,56 @@
 """Public encoder API of the PyTorch/CUDA port.
 
 Same 1-in/N-out contract as kvazaar_tpu.api (an `Encoder` fed frames one
-at a time, returning Annex-B chunks) for the configuration this port
-covers: CTB 64, deblocking, SAO, RDOQ and sign-data hiding, transform
-skip (--transform-skip), a --fast-coeff-table rate model, Main 10
-(--input-bitdepth 10), scaling lists (--scaling-list, --cqmfile) and
-lossless coding (--lossless: deblocking, SAO, sign hiding and RDOQ off),
-WPP (--wpp; --slices wpp codes a slice segment a CTB row), rate control
-(--bitrate with --rc-algorithm lambda or oba: a QP a frame, and on
-all-intra streams a QP a CTB), delta QP (--vaq, --roi: every frame
-intra, a QP a CTB; 10-bit, scaling lists and lossless code every frame
-intra as well), an IDR every `intra_period` frames and low-delay
-frames in
-between with 1-4 reference pictures (--ref): generalized-B slices (list 1
-= list 0, bi-prediction on; the B program searches the first two of each
-list) or, with --no-bipred, P slices (SMP/AMP rectangular PUs with
---smp/--amp), and the low-delay GOP (--gop lp-gGdDtT: per-layer QP
-offsets, keyframe references and selective retention of reference
-pictures); and the B pyramid (--gop 2/4/8/16, closed or --open-gop):
-display-order frames fed through push_frame/flush are coded span by span
-in coding order (engine/gop.py's GopScheduler), a P anchor (or an
-open-GOP CRA picture) then the dyadic B pictures with past pictures in
-list 0 and future ones in list 1; selective encryption (--crypto, --key:
-the Python writers code every picture), field coding (--source-scan-type
-tff|bff: encode_sequence codes each frame as two fields) and tiles
-(--tiles, --slices tiles: every frame intra, tile by tile, or over the
-CUDA devices for a uniform grid). CTU sizes other than 64 raise
-NotImplementedError naming their ROADMAP.md entry.
+at a time, returning Annex-B chunks), routed by the CTB size as the
+reference routes it:
+
+- CTB 64 (the quadtree pipelines): deblocking, SAO, RDOQ and sign-data
+  hiding, transform skip (--transform-skip), a --fast-coeff-table rate
+  model, Main 10 (--input-bitdepth 10), scaling lists (--scaling-list,
+  --cqmfile) and lossless coding (--lossless: deblocking, SAO, sign
+  hiding and RDOQ off), WPP (--wpp; --slices wpp codes a slice segment a
+  CTB row), rate control (--bitrate with --rc-algorithm lambda or oba: a
+  QP a frame, and on all-intra streams a QP a CTB), delta QP (--vaq,
+  --roi: every frame intra, a QP a CTB; 10-bit, scaling lists and
+  lossless code every frame intra as well), an IDR every `intra_period`
+  frames and low-delay frames in between with 1-4 reference pictures
+  (--ref): generalized-B slices (list 1 = list 0, bi-prediction on; the B
+  program searches the first two of each list) or, with --no-bipred, P
+  slices (SMP/AMP rectangular PUs with --smp/--amp), and the low-delay
+  GOP (--gop lp-gGdDtT: per-layer QP offsets, keyframe references and
+  selective retention of reference pictures); the B pyramid (--gop
+  2/4/8/16, closed or --open-gop): display-order frames fed through
+  push_frame/flush are coded span by span in coding order (engine/gop.py's
+  GopScheduler), a P anchor (or an open-GOP CRA picture) then the dyadic
+  B pictures with past pictures in list 0 and future ones in list 1;
+  selective encryption (--crypto, --key: the Python writers code every
+  picture), field coding (--source-scan-type tff|bff: encode_sequence
+  codes each frame as two fields) and tiles (--tiles, --slices tiles:
+  every frame intra, tile by tile, or over the CUDA devices for a uniform
+  grid).
+- CTB 16 (--ctu 16, the fixed 16x16 grid pipelines of models/
+  intra_pipeline.py and inter_pipeline.py): intra frames, P frames (low
+  delay, --ref 1-4, the lp GOP; no generalized B) and the B pyramid on a
+  union stack of four references, with deblocking, SAO, RDOQ, sign hiding,
+  WPP, --slices wpp, frame-level rate control (OBA falls back to lambda)
+  and, through Config.frame_batch, all-intra frames batched through one
+  pass of the wavefront.
+- CTB 32 (Config.ctu_size = 32), or any CTB size with Config.device set
+  to False: the host route, every frame intra through the Python
+  IntraFrameEncoder with the host deblocking filter; no pipeline is
+  built.
+
+Options outside a route raise as the reference raises.
 
 Rate control chooses a frame's QP when its device work is submitted and
 learns from its bits when it is finalized, so in the pipelined loops
 (encode_sequence, push_frame's spans, the CLI, capi.py's ring) frame N+1's
-QP is chosen before frame N's bits are known, as in the reference.
+QP is chosen before frame N's bits are known, as in the reference; the
+host route codes frame by frame.
 
 Device work runs on `device` (default "cuda"); reconstructed planes stay
 there as the reference pictures; the native C++ slice writers code the
-decisions on the host.
+decisions on the host where the reference uses them.
 """
 from __future__ import annotations
 
@@ -52,7 +67,6 @@ from .engine.gop import (FrameSpec, GopScheduler, intra_qp_offset,
 from .hevc.headers import write_pps, write_slice_header, write_sps, write_vps
 from .hevc.params import PPS, SPS, ShortTermRPS, SliceHeader
 from .hevc.sei import HASH_CHECKSUM, HASH_MD5, write_hash_sei
-from .models.intra_md import unsupported
 
 
 def build_sps(cfg: Config) -> SPS:
@@ -130,53 +144,91 @@ def parse_crypto(cfg: Config) -> tuple[int, bytes | None]:
     return features, key
 
 
+def _routes(cfg: Config) -> tuple[bool, bool, bool, bool]:
+    """(use_md, use_device, inter_md, inter_enabled) as the reference
+    routes a configuration: the quadtree pipelines at CTB 64, the 16x16
+    grid pipelines at CTB 16, the host encoder otherwise (CTB 32, or
+    Config.device False); inter frames on the quadtree path unless the
+    options force every frame intra, on the grid unless --period 1."""
+    dev_ok = getattr(cfg, "device", True)
+    use_md = bool(dev_ok and cfg.ctu_size == 64)
+    use_device = bool(dev_ok and cfg.ctu_size == 16) or use_md
+    inter_md = use_md and cfg.intra_period != 1 and _inter_coding(cfg)
+    inter_enabled = ((use_device and not use_md and cfg.intra_period != 1)
+                     or inter_md)
+    return use_md, use_device, inter_md, inter_enabled
+
+
+def _inter_coding(cfg: Config) -> bool:
+    """Whether the options allow inter frames on the quadtree path: not
+    with tiles, VAQ, ROI, 10-bit, lossless or a scaling list (the
+    reference's `inter_md`)."""
+    return not (tuple(cfg.tiles) != (1, 1) or cfg.vaq or cfg.roi_file
+                or cfg.lossless or cfg.input_bitdepth != 8
+                or cfg.scaling_list != "off")
+
+
 def check_config(cfg: Config) -> None:
-    """Raise where the reference encoder refuses the options (ValueError,
-    or NotImplementedError for what it does not implement), and
-    NotImplementedError naming the ROADMAP.md entry for options outside
-    the ported slice."""
+    """Raise where the reference encoder refuses the options: ValueError,
+    or NotImplementedError for what it does not implement (off CTB 64:
+    10-bit, transform skip, crypto of the intra modes, tiles, VAQ and ROI;
+    SMP/AMP and GOPs without inter frames; lossless and scaling lists on
+    the all-intra grid; SAO on the host route)."""
     if cfg.slices not in ("none", "tiles", "wpp"):
         raise ValueError("--slices must be tiles or wpp")
     if cfg.slices == "wpp" and not cfg.wpp:
         raise ValueError("--slices wpp requires --wpp")
     if cfg.slices == "tiles" and tuple(cfg.tiles) == (1, 1):
         raise ValueError("--slices tiles requires a tile grid")
-    parse_crypto(cfg)
+    features, _ = parse_crypto(cfg)
+    use_md, use_device, inter_md, inter_enabled = _routes(cfg)
+    if not use_md:
+        from .extras.crypto import CRYPTO_INTRA_MODE
+        for bad, what in (
+                (cfg.input_bitdepth > 8, "10-bit"),
+                (cfg.trskip_enable, "--transform-skip"),
+                (features & CRYPTO_INTRA_MODE, "crypto intra_pred_modes"),
+                (tuple(cfg.tiles) != (1, 1), "tiles"),
+                (cfg.vaq or cfg.roi_file, "vaq/roi")):
+            if bad:
+                raise NotImplementedError(
+                    f"{what} requires the quadtree device path (ctu-size "
+                    "64)")
     if cfg.trskip_enable and tuple(cfg.tiles) != (1, 1):
         raise NotImplementedError(
             "--transform-skip with tiles is not wired up yet")
-    # every frame is coded intra with --period 1, and (as in the
-    # reference, kvazaar_tpu/api.py:244-263) with tiles, VAQ, ROI, 10-bit,
-    # lossless or a scaling list: no GOP then, nor SMP/AMP (the reference
-    # refuses both)
-    all_intra = cfg.intra_period == 1 or not _inter_coding(cfg)
-    if cfg.gop_len > 1 and all_intra:
-        raise NotImplementedError(
-            "a GOP (--gop) needs inter frames: not with --period 1, "
-            "tiles, --vaq, --roi, 10-bit, --lossless or a scaling list")
-    if (cfg.smp_enable or cfg.amp_enable) and all_intra \
+    # every frame is coded intra with --period 1 and (as in the
+    # reference, kvazaar_tpu/api.py:244-263) at CTB 64 with tiles, VAQ,
+    # ROI, 10-bit, lossless or a scaling list: no GOP then, nor SMP/AMP
+    if (cfg.smp_enable or cfg.amp_enable) and not inter_md \
             and cfg.intra_period != 1:
         raise NotImplementedError(
-            "SMP/AMP needs inter frames: not with tiles, --vaq, --roi, "
-            "10-bit, --lossless or a scaling list")
-    if cfg.ctu_size != 64:
-        raise unsupported(f"--ctu {cfg.ctu_size}", "the 16-grid pipelines")
-
-
-def _inter_coding(cfg: Config) -> bool:
-    """Whether the options allow inter frames at all: not with tiles,
-    VAQ, ROI, 10-bit, lossless or a scaling list (the reference's
-    `inter_md`)."""
-    return not (tuple(cfg.tiles) != (1, 1) or cfg.vaq or cfg.roi_file
-                or cfg.lossless or cfg.input_bitdepth != 8
-                or cfg.scaling_list != "off")
+            "SMP/AMP requires the quadtree inter path (ctu-size 64)")
+    if cfg.gop_len > 1 and not inter_enabled:
+        raise NotImplementedError(
+            "a GOP (--gop) needs inter frames: not with --period 1, "
+            "tiles, --vaq, --roi, 10-bit, --lossless, a scaling list or "
+            "the host route")
+    if use_device and not use_md and not inter_enabled:
+        if cfg.lossless:
+            raise NotImplementedError(
+                "lossless requires the quadtree device path (ctu-size 64)")
+        if cfg.scaling_list != "off":
+            raise NotImplementedError(
+                "scaling lists require the quadtree device path "
+                "(ctu-size 64)")
+    if cfg.sao_type != "off" and not use_device:
+        raise NotImplementedError(
+            "SAO requires a device pipeline (ctu-size 16 or 64)")
 
 
 class Encoder:
-    """HEVC encoder on the quadtree path: IDR + low-delay generalized-B
-    or (--no-bipred) P frames, optionally in the lp GOP (submit_frame /
-    finalize_frame), or the B pyramid (push_frame / flush); all-intra
-    with --period 1, tiles, --vaq or --roi."""
+    """HEVC encoder. CTB 64: the quadtree pipelines, IDR + low-delay
+    generalized-B or (--no-bipred) P frames, optionally in the lp GOP
+    (submit_frame / finalize_frame), or the B pyramid (push_frame /
+    flush); all-intra with --period 1, tiles, --vaq or --roi. CTB 16: the
+    16x16 grid pipelines, IDR + P frames or the B pyramid. CTB 32: every
+    frame intra on the host."""
 
     def __init__(self, cfg: Config, device="cuda",
                  tile_devices=None) -> None:
@@ -195,7 +247,6 @@ class Encoder:
             frame.validate()
         else:
             cfg.validate()
-        check_config(cfg)
         if cfg.lossless:
             # transquant bypass: the loop filters never touch bypass
             # samples, and RDOQ and sign hiding have nothing to act on
@@ -203,15 +254,20 @@ class Encoder:
             cfg.sao_type = "off"
             cfg.signhide_enable = False
             cfg.rdoq_enable = False
+        check_config(cfg)
         self.cfg = cfg
         # selective encryption (extras/crypto.py): the features and key
         self.crypto_features, self.crypto_key = parse_crypto(cfg)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.use_md, self.use_device, self.inter_md, self.inter_enabled = \
+            _routes(cfg)
+        if (self.use_device and self.device.type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError("Encoder(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
-        self.pad_w = (-cfg.width) % 64
-        self.pad_h = (-cfg.height) % 64
+        align = 64 if self.use_md else 16 if self.use_device else 8
+        self.pad_w = (-cfg.width) % align
+        self.pad_h = (-cfg.height) % align
         self.sps = build_sps(cfg)
         self.sps.width = cfg.width + self.pad_w
         self.sps.height = cfg.height + self.pad_h
@@ -251,10 +307,11 @@ class Encoder:
         self.poc = 0
         # VAQ / ROI code every frame intra with a QP a CTB (10-bit,
         # lossless and scaling lists every frame intra at one QP); rate
-        # control adds a QP a CTB (LCU RC) on all-intra streams only, and
-        # a QP a frame everywhere. QG == CTB (diff_cu_qp_delta_depth 0).
-        self.inter_enabled = cfg.intra_period != 1 and _inter_coding(cfg)
-        self.lcu_rc = cfg.target_bitrate > 0 and not self.inter_enabled
+        # control adds a QP a CTB (LCU RC) on the quadtree's all-intra
+        # streams only, and a QP a frame everywhere. QG == CTB
+        # (diff_cu_qp_delta_depth 0).
+        self.lcu_rc = (cfg.target_bitrate > 0 and self.use_md
+                       and not self.inter_md)
         self.dqp_enabled = bool(cfg.vaq or cfg.roi_file) or self.lcu_rc
         self._roi = None
         if self.dqp_enabled:
@@ -267,21 +324,34 @@ class Encoder:
                 arr = np.asarray(vals[2:2 + rw * rh],
                                  np.int32).reshape(rh, rw)
                 self._roi = (rw, rh, arr)
+        # the B pyramid (--gop 2/4/8/16): display-order frames wait in
+        # _gop_buf until a span is complete, then are coded in coding
+        # order (kvazaar's input_frame_buffer reorder)
+        self.gop_enabled = (cfg.gop_len > 1 and self.inter_enabled
+                            and not cfg.gop_lowdelay)
         self.n_refs = max(1, min(cfg.ref_frames, 4))
         kw = dict(deblock=cfg.deblock_enable, deblock_beta=cfg.deblock_beta,
                   deblock_tc=cfg.deblock_tc, sao=cfg.sao_type,
                   rdoq=cfg.rdoq_enable, sign_hiding=cfg.signhide_enable,
-                  pu_depth=tuple(cfg.pu_depth_intra), rd=cfg.rd,
-                  fast_coeff_table=cfg.fast_coeff_table,
-                  trskip=cfg.trskip_enable, device=self.device)
-        if self.inter_enabled:
+                  device=self.device)
+        args = (self.sps.height, self.sps.width, cfg.qp)
+        self._pipeline = None
+        if self.inter_md:
             from .models.inter_md import MdInterPipeline
             self._pipeline = MdInterPipeline(
-                self.sps.height, self.sps.width, cfg.qp, n_refs=self.n_refs,
+                *args, n_refs=self.n_refs,
                 pu_depth_inter=tuple(cfg.pu_depth_inter), subme=cfg.subme,
                 smp=cfg.smp_enable or cfg.amp_enable, amp=cfg.amp_enable,
-                bipred=cfg.bipred, **kw)
-        else:
+                bipred=cfg.bipred, pu_depth=tuple(cfg.pu_depth_intra),
+                rd=cfg.rd, fast_coeff_table=cfg.fast_coeff_table,
+                trskip=cfg.trskip_enable, **kw)
+        elif self.inter_enabled:
+            from .models.inter_pipeline import InterPipeline
+            if self.gop_enabled:
+                # the union of list 0 and list 1: up to 2 past + 2 future
+                self.n_refs = 4
+            self._pipeline = InterPipeline(*args, n_refs=self.n_refs, **kw)
+        elif self.use_md:
             scaling = None
             if cfg.scaling_list != "off":
                 from .hevc.scaling import ScalingLists, load_cqmfile
@@ -293,24 +363,24 @@ class Encoder:
                     scaling = ScalingLists()
             kw.update(delta_qp=self.dqp_enabled, wpp=bool(cfg.wpp),
                       bit_depth=cfg.input_bitdepth, scaling=scaling,
-                      lossless=cfg.lossless)
-            args = (self.sps.height, self.sps.width, cfg.qp)
+                      lossless=cfg.lossless,
+                      pu_depth=tuple(cfg.pu_depth_intra), rd=cfg.rd,
+                      fast_coeff_table=cfg.fast_coeff_table,
+                      trskip=cfg.trskip_enable)
             if self.tile_grid is None:
                 from .models.intra_md import MdIntraPipeline
                 self._pipeline = MdIntraPipeline(*args, **kw)
             else:
                 self._pipeline = self._tile_pipeline(args, kw,
                                                      tile_devices)
+        elif self.use_device:
+            from .models.intra_pipeline import IntraPipeline
+            self._pipeline = IntraPipeline(*args, **kw)
         # the low-delay GOP's per-position plan (--gop lp-gGdDtT)
         self._lp = None
         if cfg.gop_lowdelay and self.inter_enabled:
             self._lp = lp_gop_table(cfg.gop_len, *cfg.gop_lp,
                                     max(1, cfg.ref_frames))
-        # the B pyramid (--gop 2/4/8/16): display-order frames wait in
-        # _gop_buf until a span is complete, then are coded in coding
-        # order (kvazaar's input_frame_buffer reorder)
-        self.gop_enabled = (cfg.gop_len > 1 and self.inter_enabled
-                            and not cfg.gop_lowdelay)
         if self.gop_enabled:
             self._sched = GopScheduler(cfg.gop_len, cfg.intra_period,
                                        base_qp=cfg.qp)
@@ -330,6 +400,12 @@ class Encoder:
         self._rc = None
         if cfg.target_bitrate > 0 and cfg.rc_algorithm != "no-rc":
             from .engine.rate_control import OBARateControl, RateControl
+            if cfg.rc_algorithm == "oba" and not self.use_md:
+                import sys
+                print("OBA rate control needs the quadtree path "
+                      "(ctu-size 64); falling back to lambda RC.",
+                      file=sys.stderr)
+                cfg.rc_algorithm = "lambda"
             rc_cls = (OBARateControl if cfg.rc_algorithm == "oba"
                       else RateControl)
             self._rc = rc_cls(self.sps.width, self.sps.height,
@@ -392,8 +468,9 @@ class Encoder:
         if is_idr:
             self.poc = 0
             self._dpb.clear()
-        # generalized B (list 1 = list 0), or P with --no-bipred
-        use_b = not is_idr and cfg.bipred
+        # generalized B (list 1 = list 0) on the quadtree path, or P with
+        # --no-bipred; the grid codes P slices
+        use_b = not is_idr and self.inter_md and cfg.bipred
         if self._lp is not None and not is_idr:
             # low-delay GOP: layered QP, the nearest lower-layer picture
             # and earlier keyframes as references, selective retention
@@ -428,18 +505,46 @@ class Encoder:
         self.poc += 1
         return self._submit_spec(spec, y, cb, cr)
 
-    def _submit_spec(self, spec: FrameSpec, y, cb, cr) -> dict:
-        """Dispatch the device work of one planned frame: the IDR or CRA
-        picture through the intra program, a P frame on the union stack
-        (truncated to n_refs), a B frame on its list 0 and list 1 stacks;
-        then the reconstruction joins the DPB (the spec's retention set,
-        or the n_refs newest). Returns the pending token."""
+    def _pad(self, y, cb, cr) -> tuple:
+        """The planes padded to the CTB grid by edge replication."""
         if self.pad_w or self.pad_h:
             y = np.pad(y, ((0, self.pad_h), (0, self.pad_w)), mode="edge")
             cb = np.pad(cb, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
             cr = np.pad(cr, ((0, self.pad_h // 2), (0, self.pad_w // 2)),
                         mode="edge")
+        return y, cb, cr
+
+    def submit_frames(self, frames) -> list[dict]:
+        """Batched all-intra submission on the 16x16 grid: B frames
+        through one pass of the wavefront (IntraPipeline.submit_many) at
+        the configured QP; returns their pending tokens. encode_sequence
+        takes this path with Config.frame_batch > 1 where the reference
+        does (constant QP, no inter frames, no delta QP)."""
+        cfg = self.cfg
+        padded = [self._pad(*f) for f in frames]
+        devs = self._pipeline.submit_many([p[0] for p in padded],
+                                          [p[1] for p in padded],
+                                          [p[2] for p in padded], qp=cfg.qp)
+        metas = []
+        for (y, cb, cr), dev in zip(padded, devs):
+            metas.append({"is_idr": True, "poc": 0, "qp": cfg.qp,
+                          "frame_num": self.frame_num, "y": y, "cb": cb,
+                          "cr": cr, "slice_type": 2, "is_ref": True,
+                          "l0": [], "l1": [], "union": [], "keep": None,
+                          "nal": "", "layer": 0, "dev": dev,
+                          "dpb_pocs": []})
+            self.frame_num += 1
+        return metas
+
+    def _submit_spec(self, spec: FrameSpec, y, cb, cr) -> dict:
+        """Dispatch the device work of one planned frame: the IDR or CRA
+        picture through the intra program, a P frame on the union stack
+        (truncated to n_refs), a B frame on its list 0 and list 1 stacks;
+        then the reconstruction joins the DPB (the spec's retention set,
+        or the n_refs newest). On the host route nothing is dispatched.
+        Returns the pending token."""
+        y, cb, cr = self._pad(y, cb, cr)
         # the rate control's QP (its model learns from the frames
         # finalized so far), plus the GOP's offset
         qp = (self._rc.frame_qp(spec.is_idr, y_plane=y, layer=spec.layer)
@@ -464,9 +569,14 @@ class Encoder:
             s1 = s0 if spec.l1 == spec.l0 else stack(spec.l1)
             meta["dev"] = self._pipeline.submit_inter_b(
                 y, cb, cr, s0, s1, spec.l0, spec.l1, qp=qp)
-        elif spec.slice_type == 1:
+        elif spec.slice_type == 1 and self.inter_md:
             meta["dev"] = self._pipeline.submit_inter(
                 y, cb, cr, *stack(union), ref_pocs=union, qp=qp)
+        elif spec.slice_type == 1:
+            meta["dev"] = self._pipeline.submit_inter(y, cb, cr,
+                                                      *stack(union), qp=qp)
+        elif self._pipeline is None:
+            meta["dev"] = None
         elif self.dqp_enabled:
             meta["dev"] = self._pipeline.submit(
                 y, cb, cr, qp=qp,
@@ -635,7 +745,13 @@ class Encoder:
         order, from fresh contexts. Under encryption one keystream serves
         the picture's substreams in write order. Returns (substreams,
         motion field for TMVP or None, the bits of each CTB under LCU
-        rate control or None)."""
+        rate control or None, the host encoder or None).
+
+        Intra frames off CTB 64 take the reference's routes: the grid's
+        decisions the native grid writer, or (with SAO, --slices or
+        encryption) the Python IntraFrameEncoder, which on the host route
+        also makes the decisions; the grid's P and B slices the Python
+        PSliceWriter."""
         from . import native
         slice_type = meta["slice_type"]
         sdh = bool(self.pps.sign_data_hiding_enabled)
@@ -658,7 +774,25 @@ class Encoder:
                 out.append(data[off:off + n])
                 off += n
             return out
-        if slice_type == 2:
+        host_enc = None
+        if slice_type == 2 and not self.use_md:
+            if (decisions is not None and native.available() and not sao
+                    and not seg_mode and crypto_res is None):
+                data, sizes = native.encode_intra_grid(
+                    decisions["modes"], decisions["levels_y"],
+                    decisions["levels_cb"], decisions["levels_cr"], sh.qp,
+                    wpp, sdh=sdh)
+                self.native_slices += 1
+                return split(data, sizes), None, None, None
+            from .engine.frame_encoder import IntraFrameEncoder
+            if decisions is not None:
+                decisions = {k: (v.cpu().numpy() if k.startswith("rec_")
+                                 else v) for k, v in decisions.items()}
+            host_enc = IntraFrameEncoder(self.sps, self.pps, sh, meta["y"],
+                                         meta["cb"], meta["cr"], self.cfg,
+                                         decisions=decisions)
+            writer = _HostCtus(host_enc)
+        elif slice_type == 2:
             if native.available() and not python_only:
                 data, sizes = native.encode_md_slice(
                     decisions["size_map8"], decisions["mode_map8"],
@@ -668,13 +802,14 @@ class Encoder:
                     bit_depth=self.sps.bit_depth_luma,
                     mode4=decisions.get("mode_map4"))
                 self.native_slices += 1
-                return split(data, sizes), None, None
+                return split(data, sizes), None, None, None
             from .engine.md_writer import MdIntraWriter
             writer = MdIntraWriter(self.sps, self.pps, sh, decisions)
             if self.tile_grid is not None:
                 writer.tile_ctb = self.tile_grid.tile_id_ctb
                 writer.tile4 = self.tile_grid.tile4_map(self.sps.ctb_size)
         else:
+            from .engine.inter_writer import PSliceWriter
             from .engine.md_inter_writer import MdPSliceWriter
             l0, l1 = meta["l0"], meta["l1"]
             re0 = [dict(self._motion_fields.get(p, {}), poc=p) for p in l0]
@@ -682,10 +817,11 @@ class Encoder:
             sh.temporal_mvp_enabled = (
                 1 if self.sps.temporal_mvp_enabled and re0
                 and all("mv" in e for e in re0 + re1) else 0)
-            writer = MdPSliceWriter(self.sps, self.pps, sh, decisions, re0,
-                                    meta["poc"], ref_entries_l1=re1,
-                                    union_pocs=meta["union"])
-            if (native.available() and "part8" not in decisions
+            writer = (MdPSliceWriter if self.inter_md else PSliceWriter)(
+                self.sps, self.pps, sh, decisions, re0, meta["poc"],
+                ref_entries_l1=re1, union_pocs=meta["union"])
+            if (self.inter_md and native.available()
+                    and "part8" not in decisions
                     and not python_only):
                 data, sizes, mv4, refpoc4 = native.encode_md_slice_pb(
                     decisions, sh, writer.helper.ref_list, meta["poc"],
@@ -696,7 +832,7 @@ class Encoder:
                                     - 5)) - 1,
                     max_merge=5 - sh.five_minus_max_num_merge_cand)
                 self.native_slices += 1
-                return split(data, sizes), (mv4, refpoc4), None
+                return split(data, sizes), (mv4, refpoc4), None, None
         if sao:
             from .engine.sao_writer import SaoWriter
             writer.sao_w = SaoWriter(decisions, bool(sh.sao_luma),
@@ -748,7 +884,24 @@ class Encoder:
                 substreams.append(bw.get_bytes())
         motion = (writer.fs.mv, writer.fs.ref_poc) \
             if hasattr(writer, "fs") else None
-        return substreams, motion, lcu_bits
+        return substreams, motion, lcu_bits, host_enc
+
+    def _deblock_recon(self, rec, edges, qp: int) -> list:
+        """The in-loop deblocking filter of a host-coded intra frame: BS 2
+        on every TU edge the encoder recorded (ops/deblock.py)."""
+        from .ops.deblock import deblock_frame
+        from .tables import chroma_qp
+        cfg = self.cfg
+        w, h = self.sps.width, self.sps.height
+        y, cb, cr = deblock_frame(
+            rec[0].astype(np.int32), rec[1].astype(np.int32),
+            rec[2].astype(np.int32), edges[0][:h // 4, :w // 8].copy(),
+            edges[1][:h // 8, :w // 4].copy(), qp,
+            chroma_qp(qp, self.pps.cb_qp_offset),
+            chroma_qp(qp, self.pps.cr_qp_offset), cfg.deblock_beta,
+            cfg.deblock_tc)
+        return [y.astype(np.uint16), cb.astype(np.uint16),
+                cr.astype(np.uint16)]
 
     def finalize_frame(self, meta: dict) -> tuple[bytes, dict]:
         cfg = self.cfg
@@ -759,10 +912,11 @@ class Encoder:
                     if meta["nal"] == "RASL" else
                     NAL_TRAIL_R if meta["is_ref"] else NAL_TRAIL_N)
         sh = self._slice_header(meta)
-        decisions = self._pipeline.materialize(meta["dev"])
+        decisions = (None if meta["dev"] is None
+                     else self._pipeline.materialize(meta["dev"]))
         self._last_decisions = decisions
-        substreams, motion, lcu_bits = self._slice_data(meta, sh,
-                                                         decisions)
+        substreams, motion, lcu_bits, host_enc = self._slice_data(
+            meta, sh, decisions)
 
         # snapshot a reference frame's motion field for future TMVP
         if (self.inter_enabled and meta["is_ref"]
@@ -837,25 +991,43 @@ class Encoder:
         for s in slice_nals:
             out += nal_unit(s, nal_type)
 
-        rec = [decisions[k].cpu().numpy().astype(np.uint16)
-               for k in ("rec_y", "rec_cb", "rec_cr")]
+        w, h = self.sps.width, self.sps.height
+        if decisions is not None:
+            rec = [decisions[k].cpu().numpy().astype(np.uint16)
+                   for k in ("rec_y", "rec_cb", "rec_cr")]
+        else:
+            rec = [host_enc.rec_y[:h, :w].astype(np.uint16),
+                   host_enc.rec_cb[:h // 2, :w // 2].astype(np.uint16),
+                   host_enc.rec_cr[:h // 2, :w // 2].astype(np.uint16)]
+        # device frames come out of the in-loop filters with their
+        # checksum and SSE; the host route's frames are deblocked here
+        device_final = decisions is not None
+        if cfg.deblock_enable and not device_final:
+            rec = self._deblock_recon(
+                rec, (host_enc.edges_ver, host_enc.edges_hor), meta["qp"])
         if cfg.hash != "none":
-            if cfg.hash == "checksum":
+            if cfg.hash == "checksum" and device_final:
                 sei = write_hash_sei([], HASH_CHECKSUM,
                                      self.sps.bit_depth_luma,
                                      checksums=decisions["hash"])
             else:
-                sei = write_hash_sei(rec, HASH_MD5, self.sps.bit_depth_luma)
+                sei = write_hash_sei(
+                    rec, HASH_CHECKSUM if cfg.hash == "checksum"
+                    else HASH_MD5, self.sps.bit_depth_luma)
             out += nal_unit(sei, NAL_SUFFIX_SEI)
         crop = [rec[0][:cfg.height, :cfg.width],
                 rec[1][:cfg.height // 2, :cfg.width // 2],
                 rec[2][:cfg.height // 2, :cfg.width // 2]]
-        npix = [self.sps.width * self.sps.height,
-                self.sps.width * self.sps.height // 4,
-                self.sps.width * self.sps.height // 4]
         mv = float((1 << self.sps.bit_depth_luma) - 1)
-        psnr = [99.0 if s_ == 0 else 10.0 * np.log10(mv ** 2 * n_ / s_)
-                for s_, n_ in zip(decisions["sse"], npix)]
+        if device_final:
+            npix = [w * h, w * h // 4, w * h // 4]
+            psnr = [99.0 if s_ == 0 else 10.0 * np.log10(mv ** 2 * n_ / s_)
+                    for s_, n_ in zip(decisions["sse"], npix)]
+        else:
+            y, cb, cr = meta["y"], meta["cb"], meta["cr"]
+            psnr = _psnr((y[:cfg.height, :cfg.width],
+                          cb[:cfg.height // 2, :cfg.width // 2],
+                          cr[:cfg.height // 2, :cfg.width // 2]), crop, mv)
         if self._rc is not None:
             self._rc.update(len(out) * 8, is_idr, layer=meta["layer"])
             if lcu_bits is not None:
@@ -864,10 +1036,11 @@ class Encoder:
                     self._rc.update_oba(lcu_bits,
                                         (meta["y"], meta["cb"], meta["cr"]),
                                         rec, layer=meta["layer"])
+        dd = decisions or {}
         info = {"poc": meta["poc"], "bytes": len(out), "qp": meta["qp"],
                 "recon": rec, "recon_out": crop, "psnr": psnr,
-                "n_waves": decisions.get("n_waves"),
-                "tile_waves": decisions.get("tile_waves"),
+                "n_waves": dd.get("n_waves"),
+                "tile_waves": dd.get("tile_waves"),
                 "slice_type": meta["slice_type"],
                 "substreams": len(substreams), "slices": len(slice_nals)}
         if cfg.stats_file_prefix:
@@ -877,6 +1050,41 @@ class Encoder:
                         f"{len(out) * 8} {psnr[0]:.4f} {psnr[1]:.4f} "
                         f"{psnr[2]:.4f}\n")
         return out, info
+
+
+class _HostCtus:
+    """IntraFrameEncoder under the slice writers' interface (cab, sao_w,
+    write_ctu(ctu_y, ctu_x))."""
+
+    def __init__(self, enc) -> None:
+        self.enc = enc
+
+    @property
+    def cab(self):
+        return self.enc.cab
+
+    @cab.setter
+    def cab(self, cab) -> None:
+        self.enc.cab = cab
+
+    @property
+    def sao_w(self):
+        return getattr(self.enc, "sao_w", None)
+
+    @sao_w.setter
+    def sao_w(self, w) -> None:
+        self.enc.sao_w = w
+
+    def write_ctu(self, ctu_y: int, ctu_x: int) -> None:
+        self.enc.encode_ctu(ctu_x, ctu_y)
+
+
+def _psnr(src_planes, rec_planes, maxv: float) -> list[float]:
+    out = []
+    for s, r in zip(src_planes, rec_planes):
+        mse = np.mean((s.astype(np.float64) - r.astype(np.float64)) ** 2)
+        out.append(99.0 if mse == 0 else 10.0 * np.log10(maxv ** 2 / mse))
+    return out
 
 
 def field_config(cfg: Config) -> Config:
@@ -925,8 +1133,34 @@ def encode_sequence(cfg: Config, frames, encoder: "Encoder | None" = None,
             out += chunk
             infos.append(info)
         return out, infos
+    if (enc.use_device and cfg.frame_batch > 1 and not enc.inter_enabled
+            and enc._rc is None and not enc.dqp_enabled
+            and hasattr(enc._pipeline, "submit_many")):
+        # frame-batched all-intra (Config.frame_batch): groups of B
+        # frames through one device pass each, the previous group
+        # entropy coded after the next is submitted
+        frames = list(frames)
+        prev: list = []
+        for i in range(0, len(frames), cfg.frame_batch):
+            metas = enc.submit_frames(frames[i:i + cfg.frame_batch])
+            for m in prev:
+                chunk, info = enc.finalize_frame(m)
+                out += chunk
+                infos.append(info)
+            prev = metas
+        for m in prev:
+            chunk, info = enc.finalize_frame(m)
+            out += chunk
+            infos.append(info)
+        return out, infos
     pending = None
     for (y, cb, cr) in frames:
+        if not enc.use_device:
+            # the host route codes frame by frame
+            chunk, info = enc.encode_frame(y, cb, cr)
+            out += chunk
+            infos.append(info)
+            continue
         meta = enc.submit_frame(y, cb, cr)
         if pending is not None:
             chunk, info = enc.finalize_frame(pending)

@@ -205,12 +205,6 @@ def ts_lambda(qp):
 _LOG2_LOW = (13, 15)
 
 
-def unsupported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to kvazaar_tpu_torch yet "
-        f"(ROADMAP.md queue 1: {entry})")
-
-
 class MdIntraPipeline:
     """Quadtree all-intra encoder compute path for one frame size."""
 

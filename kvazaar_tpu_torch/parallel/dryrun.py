@@ -69,10 +69,10 @@ def dryrun_devices(n_devices: int, device: str = "cuda") -> list:
     return [torch.device(device)] * n_devices
 
 
-def mesh_stream(devs, grid_for: int) -> tuple:
-    """The dryrun's frames (dryrun_config(grid_for)) through
-    MeshTiledIntraPipeline over the torch devices devs: (stream, the
-    encode's infos, the mesh shape, seconds)."""
+def mesh_stream(devs, grid_for: int, n_frames: int = 2) -> tuple:
+    """The dryrun's first n_frames frames (dryrun_config(grid_for))
+    through MeshTiledIntraPipeline over the torch devices devs: (stream,
+    the encode's infos, the mesh shape, seconds)."""
     import time
 
     from ..api import Encoder, encode_sequence
@@ -84,11 +84,11 @@ def mesh_stream(devs, grid_for: int) -> tuple:
     mesh = (enc._pipeline.mr, enc._pipeline.mc)
     assert 1 < mesh[0] * mesh[1] <= len(devs)
     t = time.perf_counter()
-    stream, infos = encode_sequence(cfg, frames, encoder=enc)
+    stream, infos = encode_sequence(cfg, frames[:n_frames], encoder=enc)
     return stream, infos, mesh, time.perf_counter() - t
 
 
-def tiled_stream(grid_for: int, device) -> tuple:
+def tiled_stream(grid_for: int, device, n_frames: int = 2) -> tuple:
     """The same frames tile by tile on one device (TiledIntraPipeline):
     (stream, seconds)."""
     import copy
@@ -102,7 +102,7 @@ def tiled_stream(grid_for: int, device) -> tuple:
     enc = Encoder(cfg, device=device)
     assert isinstance(enc._pipeline, TiledIntraPipeline)
     t = time.perf_counter()
-    stream, _ = encode_sequence(cfg, frames, encoder=enc)
+    stream, _ = encode_sequence(cfg, frames[:n_frames], encoder=enc)
     return stream, time.perf_counter() - t
 
 

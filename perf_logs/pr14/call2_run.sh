@@ -1,0 +1,24 @@
+#!/bin/bash
+# chip call 2, the final tree unpacked from its git archive into
+# _chipwork/tree: the smoke and the CUDA tests, then the smoke alone in
+# an empty directory, then the grid profile (tools/torch_profile.py --grid)
+cd "$(dirname "$0")/../.."
+mkdir -p chiprun_out/pr14
+python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+t0=$(date +%s)
+(cd _chipwork/tree && python3 chip_smoke.py) > chiprun_out/pr14/call2_chip_smoke.log 2>&1
+echo smoke_rc=$? wall_s=$(( $(date +%s) - t0 ))
+(cd _chipwork/tree && python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py) > chiprun_out/pr14/call2_cuda_tests.log 2>&1
+echo tests_rc=$?
+alone=$(mktemp -d) && cp _chipwork/tree/chip_smoke.py "$alone"/
+(cd "$alone" && python3 chip_smoke.py) > chiprun_out/pr14/call2_alone.log 2>&1
+echo alone_rc=$?
+rm -rf "$alone"
+(cd _chipwork/tree && python3 tools/torch_profile.py --grid) > chiprun_out/pr14/call2_profile_grid.log 2>&1
+echo profile_rc=$?
+tail -3 chiprun_out/pr14/call2_alone.log
+tail -2 chiprun_out/pr14/call2_cuda_tests.log
+grep -E "^smoke:|decode:|decodes:|decode without|parity:|FAIL|fps|phase 1[34]|ctu" chiprun_out/pr14/call2_chip_smoke.log | cut -c1-300 | tail -60
+tail -3 chiprun_out/pr14/call2_chip_smoke.log
+grep -vE "USDT|^\s*$" chiprun_out/pr14/call2_profile_grid.log | tail -20

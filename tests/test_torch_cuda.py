@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (EXTRAS_416, GOP8, GOP_OBA,  # noqa: E402
-                        INTRA_LEAVES, LCU_OBA, LOWDELAY, OPEN_GOP, P_SMP,
+                        GRID, GRID_BATCH, GRID_GOP8, INTRA_LEAVES, LCU_OBA, LOWDELAY, OPEN_GOP, P_SMP,
                         SMOKE_ROI, TOOL_LDB, TOOL_ROW, TRSKIP_FCT, VAQ_ROI,
                         VARIANTS_416, WPP_RC,
                         compare_devices, kernel_errors, kernel_inputs,
@@ -299,3 +299,23 @@ def test_cuda_mesh_over_one_card_twice():
     r = dryrun.run(2, "cuda")
     assert r["mesh"] == (1, 2) and len(r["devices"]) == 2
     assert r["stream"] == dryrun.run(2, "cpu")["stream"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p", "gop8", "batch"])
+def test_cuda_grid_equals_cpu(name):
+    """The 16x16-grid pipelines (--ctu 16) at 120x72 (padded to 128x80):
+    IDR + 3 P, the GOP 8 pyramid with the tool row (9 frames) and
+    frame_batch 2 (2 frames) give the CPU path's streams and maps on the
+    GPU, decode hash-exactly, and launch neither kernel."""
+    _need_cuda()
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    from tools.torch_goldens import grid_frames
+    cfg, n = {"p": (GRID, 4), "gop8": (GRID_GOP8, 9),
+              "batch": (GRID_BATCH, 2)}[name]
+    before = (me.me_refine.launches, me.me_eval.launches)
+    stream, rows = compare_devices(grid_frames(n, 120, 72), 120, 72, **cfg)
+    assert (me.me_refine.launches, me.me_eval.launches) == before
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == n and all(p.hash_ok for p in pics)

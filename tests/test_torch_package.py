@@ -2,8 +2,8 @@
 kvazaar_tpu (nor do chip_smoke.py and the tools that run on the GPU
 machine: me_bench.py, me_eval_ab.py, torch_profile.py,
 torch_lowdelay_refs.py), it targets CUDA
-unless asked for the CPU, and configurations outside the ported slice
-raise."""
+unless asked for the CPU, and it accepts and refuses the configurations
+the JAX package accepts and refuses."""
 import ast
 import os
 import subprocess
@@ -80,7 +80,6 @@ def test_encoder_targets_cuda_by_default():
     assert Encoder(cfg, device="cpu")._pipeline.device.type == "cpu"
 
 
-UNSUPPORTED = {"ctu16": dict(ctu_size=16)}
 KEY = ",".join(str(i) for i in range(16))
 DATA = os.path.join(ROOT, "tests", "data")
 CQM = os.path.join(DATA, "torch_cqm.txt")
@@ -162,6 +161,32 @@ OPTION_SETS = {
     "tiles_sao_rdoq": (("tiles", "2x1"), ("sao_type", "full"),
                        ("rdoq", "1"), ("signhide", "1")),
 }
+# CTB 16 (the grid pipelines) and CTB 32 (the host route): alone and with
+# the options the reference routes or refuses off CTB 64
+CTB_ROWS = {
+    "": (),
+    "_gop8": (("gop", "8"),),
+    "_lp": (("gop", "lp-g4d3t1"),),
+    "_smp": (("smp", "1"),),
+    "_main10": (("input_bitdepth", 10),),
+    "_trskip": (("transform-skip", "1"),),
+    "_vaq": (("vaq", "4"),),
+    "_roi": (("roi", "<roi>"),),
+    "_lossless": (("lossless", "1"),),
+    "_lossless_p1": (("lossless", "1"), ("period", "1")),
+    "_scaling": (("scaling-list", "default"),),
+    "_scaling_p1": (("scaling-list", "default"), ("period", "1")),
+    "_tiles": (("tiles", "2x1"),),
+    "_crypto_on": (("crypto", "on"),),
+    "_crypto_intra": (("crypto", "intra_pred_modes"),),
+    "_sao": (("sao_type", "full"),),
+    "_oba": (("bitrate", "500000"), ("rc-algorithm", "oba")),
+    "_slices_wpp": (("wpp", "1"), ("slices", "wpp")),
+    "_p1": (("period", "1"),),
+}
+for _ctb in (16, 32):
+    for _sfx, _opts in CTB_ROWS.items():
+        OPTION_SETS[f"ctu{_ctb}{_sfx}"] = (("ctu_size", _ctb),) + _opts
 
 
 def _build(cfg_mod, api_mod, opts, roi, **kw):
@@ -198,15 +223,6 @@ def test_option_matrix_matches_reference(name, tmp_path):
     else:
         assert not isinstance(got, Exception), repr(got)
         assert got == want
-
-
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_unsupported_options_raise(name):
-    from kvazaar_tpu_torch.api import Encoder
-    from kvazaar_tpu_torch.cfg import Config
-    cfg = Config(width=128, height=64, **UNSUPPORTED[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Encoder(cfg, device="cpu")
 
 
 TOOLS = {"sao": dict(sao_type="full"), "rdoq": dict(rdoq_enable=True),

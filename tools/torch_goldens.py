@@ -85,10 +85,14 @@ lossless) at 128x64:
   int32 fold, _transform_quant_skip, the transform-skip RD competition
   _tq_4x4_rd, and the 10-bit leaf costs and partition.
 
+and in tests/data/torch_golden_grid.npz, the 16x16-grid pipelines
+(--ctu 16): per GRID_CONFIGS entry the stream and every coded frame's
+maps (GRID_KEYS) on grid_frames through encode_sequence.
+
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p|gop|presets|rc|variants] (every file when no
-argument is given); `variants <part> ...` re-runs those parts and merges
-them into the file.
+[slice|tools|lowdelay|p|gop|presets|rc|variants|extras|grid] (every file
+when no argument is given); `variants <part> ...` re-runs those parts and
+merges them into the file.
 """
 from __future__ import annotations
 
@@ -114,6 +118,7 @@ OUT_RC = os.path.join(ROOT, "tests", "data", "torch_golden_rc.npz")
 OUT_VARIANTS = os.path.join(ROOT, "tests", "data",
                             "torch_golden_variants.npz")
 OUT_EXTRAS = os.path.join(ROOT, "tests", "data", "torch_golden_extras.npz")
+OUT_GRID = os.path.join(ROOT, "tests", "data", "torch_golden_grid.npz")
 FCT_TABLE = os.path.join(ROOT, "tests", "data", "torch_fct_table.json")
 CQM_FILE = os.path.join(ROOT, "tests", "data", "torch_cqm.txt")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
@@ -1521,9 +1526,82 @@ def write_extras_golden(path: str = OUT_EXTRAS, only=()) -> None:
     _save(path, data)
 
 
+# the 16x16-grid pipelines (--ctu 16). GRID_CONFIGS: (configuration,
+# width, height, frames) on grid_frames: "p" IDR + 2 P at 120x72 (padded
+# to 128x80 with a conformance window); "lp" the low-delay GOP lp-g4d3t1
+# with two references (P slices: the grid codes no generalized B); "g8"
+# the B pyramid --gop 8 -p 8 with SAO full, RDOQ and sign hiding (an IDR,
+# then a period-boundary IDR and seven pictures after it); "wpp_rc"
+# --wpp with --bitrate (lambda RC, a QP a frame); "batch" -p 1 with
+# frame_batch 2 over 3 frames (the same stream as unbatched); "tff" field
+# coding at 128x80 (fields of 40 lines, padded to 48).
+GRID_KEYS = ("modes", "levels_y", "levels_cb", "levels_cr", "mv",
+             "is_inter", "ref_idx", "mv2", "ref2", "inter_dir", "hash",
+             "rec_y", "rec_cb", "rec_cr") + SAO_KEYS
+GRID = dict(ctu_size=16)
+GRID_CONFIGS = {
+    "p": (GRID, 120, 72, 3),
+    "lp": (dict(GRID, gop_len=4, gop_lowdelay=True, gop_lp=(3, 1),
+                ref_frames=2), 120, 72, 5),
+    "g8": (dict(GRID, gop_len=8, intra_period=8, sao_type="full",
+                rdoq_enable=True, signhide_enable=True), 120, 72, 9),
+    "wpp_rc": (dict(GRID, wpp=True, target_bitrate=300_000), 120, 72, 3),
+    "batch": (dict(GRID, intra_period=1, frame_batch=2), 120, 72, 3),
+    "tff": (dict(GRID, source_scan_type="tff"), 128, 80, 2),
+}
+
+
+def grid_frames(n: int, w: int, h: int) -> list:
+    """chip_smoke.py's mixed_frames cropped to w x h (any size down to
+    16x16; the content is made at least 128x64)."""
+    from chip_smoke import mixed_frames
+    frames = mixed_frames(n, max(w, 128), max(h, 64))
+    return [(y[:h, :w], cb[:h // 2, :w // 2], cr[:h // 2, :w // 2])
+            for y, cb, cr in frames]
+
+
+def jax_grid_stream(name: str) -> tuple[bytes, list[dict]]:
+    """A GRID_CONFIGS stream of kvazaar_tpu through encode_sequence;
+    returns (stream, the maps of GRID_KEYS per coded frame)."""
+    from kvazaar_tpu.api import Encoder, encode_sequence
+    from kvazaar_tpu.cfg import Config
+    kw, w, h, n = GRID_CONFIGS[name]
+    cfg = Config(width=w, height=h, qp=30, **kw)
+    ecfg = cfg
+    if cfg.source_scan_type != "progressive":
+        import copy
+        ecfg = copy.copy(cfg)
+        ecfg.height = h // 2
+        ecfg._fields_split = True
+    enc = Encoder(ecfg)
+    decs = []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        decs.append({k: np.asarray(v) for k, v in
+                     enc._last_decisions.items() if k in GRID_KEYS})
+        return out
+    enc.finalize_frame = record
+    stream, _ = encode_sequence(cfg, grid_frames(n, w, h), encoder=enc)
+    return stream, decs
+
+
+def write_grid_golden(path: str = OUT_GRID) -> None:
+    """Every GRID_CONFIGS stream in this process (the JAX pipelines of
+    one frame size are shared across encoders)."""
+    import time
+    data = {}
+    for name in GRID_CONFIGS:
+        t = time.perf_counter()
+        data.update(_stream_arrays(name + "_", *jax_grid_stream(name)))
+        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+    _save(path, data)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
-                             "presets", "rc", "variants", "extras"]
+                             "presets", "rc", "variants", "extras", "grid"]
     if which[0] in ("rc", "variants", "extras") and len(which) > 1:
         # python tools/torch_goldens.py rc|variants|extras <part> ...:
         # re-run those parts
@@ -1535,4 +1613,4 @@ if __name__ == "__main__":
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
          "gop": write_gop_golden, "presets": write_presets_golden,
          "rc": write_rc_golden, "variants": write_variants_golden,
-         "extras": write_extras_golden}[w]()
+         "extras": write_extras_golden, "grid": write_grid_golden}[w]()

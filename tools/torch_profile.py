@@ -40,9 +40,18 @@ own: kernel launches, kernel-busy ms, host wall ms and top kernels) and
 the whole next P frame under torch.profiler (launches, kernel-busy share
 of its unprofiled wall time).
 
+With --grid it measures the 16x16-grid pipelines (--ctu 16) at 1080p:
+IDR + P of mixed_frames with the default tools and with the tool row
+plus sign hiding, in turns (default, tool row, tool row, default). Per
+run the unprofiled submit and wavefront ms of each frame, then on a
+second encode, each under torch.profiler on its own, the IDR's and the
+P frame's wavefront (`_wave_loop`) and the P frame's motion search
+(`_best_uni`): kernel launches (a wave for the wavefronts), kernel-busy
+ms and host wall ms.
+
 Usage (on a machine with a GPU):
     python3 tools/torch_profile.py [frames] [--leaf]
-    python3 tools/torch_profile.py --wave [medium] | --recon | --p
+    python3 tools/torch_profile.py --wave [medium] | --recon | --p | --grid
 """
 from __future__ import annotations
 
@@ -227,6 +236,70 @@ def wave_profile(other: str = "default") -> None:
                   f"x{e.count:7d}  {e.key[:80]}", flush=True)
 
 
+def grid_profile(w: int = 1920, h: int = 1080) -> None:
+    """The grid pipelines' wavefront and P search at w x h (--grid)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import GRID, TOOL_ROW, mixed_frames, smi, wrap_timed
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.cfg import Config
+    frames = mixed_frames(2, w, h)
+    cfgs = {"default": GRID,
+            "tool row": dict(TOOL_ROW, ctu_size=16, signhide_enable=True)}
+    enc = Encoder(Config(width=w, height=h, **GRID))
+    for f in frames:                              # warm-up, not counted
+        enc.encode_frame(*f)
+    print(smi("name,power.limit"), flush=True)
+    for label in ("default", "tool row", "tool row", "default"):
+        enc = Encoder(Config(width=w, height=h, **cfgs[label]))
+        pipe = enc._pipeline
+        times: dict = {}
+        wrap_timed(torch, pipe, {"submit_many": "submit",
+                                 "submit_inter": "submit",
+                                 "_wave_loop": "wavefront"}, times)
+        infos = [enc.encode_frame(*f)[1] for f in frames]
+        print(f"{label}: " + "; ".join(
+            f"{k} {i['bytes']} bytes, waves {i['n_waves']}, submit "
+            f"{s_:.1f} ms, wavefront {wv:.1f} ms ({wv / i['n_waves']:.2f} "
+            "ms a wave)" for k, i, s_, wv in zip(
+                ("IDR", "P"), infos, times["submit"], times["wavefront"])),
+            flush=True)
+        enc = Encoder(Config(width=w, height=h, **cfgs[label]))
+        pipe = enc._pipeline
+        rows = []
+
+        def profiled(name, fn):
+            def run(*a, **kw):
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                torch.cuda.synchronize()
+                prof.start()
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+                prof.stop()
+                ev = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+                rows.append((name, sum(e.count for e in ev),
+                             sum(e.self_device_time_total for e in ev) / 1e3,
+                             wall))
+                return r
+            return run
+        pipe._wave_loop = profiled("wavefront", pipe._wave_loop)
+        pipe._best_uni = profiled("search (_best_uni)", pipe._best_uni)
+        for f in frames:
+            enc.encode_frame(*f)
+        for (name, n, busy, wall), k in zip(rows, ("IDR", "P", "P")):
+            per = (f" = {n / pipe.n_waves:.1f} a wave" if name ==
+                   "wavefront" else "")
+            print(f"  profiled {k} {name}: {n} kernel launches{per}, "
+                  f"kernels busy {busy:.3f} ms, host wall {wall:.1f} ms",
+                  flush=True)
+
+
 def recon_compare() -> None:
     import torch
     from chip_smoke import TOOL_LDB, mixed_frames, smi, wrap_timed
@@ -341,6 +414,8 @@ if __name__ == "__main__":
         p_profile()
     elif "--wave" in sys.argv[1:]:
         wave_profile("medium" if "medium" in sys.argv[1:] else "default")
+    elif "--grid" in sys.argv[1:]:
+        grid_profile()
     elif "--recon" in sys.argv[1:]:
         recon_compare()
     else:
