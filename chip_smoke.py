@@ -112,7 +112,8 @@ Phases (each prints its lines; any failure exits non-zero):
    tiles with the tool row, 1 frame through TiledIntraPipeline, a slice
    segment a tile, hash-exact, each tile's waves and submit time; (iv)
    the multi-device dryrun's 4x4 grid of 320x192 tiles (its first frame)
-   through MeshTiledIntraPipeline over cuda:0 twice (or the CUDA devices
+   through MeshTiledIntraPipeline, one batched call a device's block of
+   eight tiles, over cuda:0 twice (or the CUDA devices
    present where there are two or more), hash-exact and byte-identical
    to the tiled path's stream of the same frames on the CPU (coded in
    the CPU worker beside (i)-(iii)); (v) on cuda and on the CPU at
@@ -128,8 +129,16 @@ Phases (each prints its lines; any failure exits non-zero):
    stream equal to the unbatched one; per frame the bytes, PSNR, waves,
    inter share and the submit, wavefront and host ms; (iv) (i)-(iii) at
    416x240 on cuda and on the CPU: the same streams and maps; (v) CTB 32,
-   2 frames at 416x240 on the host route (no pipeline).
-Phases 10 and 14, and phases 12 and 13, run in two child processes of
+   2 frames at 416x240 on the host route (no pipeline);
+15. the batched CTB-64 intra program (MdIntraPipeline.submit_many): (i)
+   -p 1 with frame_batch 2, 2 frames at 1080p through one search and one
+   wavefront, hash-exact, the stream and every map of each frame (its
+   waves included) equal to the unbatched encode's of the same frames,
+   per frame the waves, the batched submit ms and the two unbatched
+   submit ms; (ii) the tool row with --pu-depth-intra 1-4 and frame_batch
+   2, 3 frames at 416x240 (a full batch and a partial one) on cuda and on
+   the CPU: the same streams and maps, hash-exact.
+Phases 10, 14 and 15, and phases 12 and 13, run in two child processes of
 their own (`--phases`, CHILD_GROUPS) beside phases 4-9 and 11, from the
 end of phase 3 on, and their output is printed after phase 11's; phase
 5's CPU half runs beside phases 3-4. The hash-exact decodes of each
@@ -137,7 +146,7 @@ process's encodes run in a worker process beside its later phases (phase
 14's 1080p streams in one each) and are checked at its end; the CPU half
 of every cuda-against-CPU run runs in another, beside its cuda half.
 The last lines are a JSON object of per-kernel numbers (launches summed
-over the encodes of phases 4 and 6-14; me_eval's pair
+over the encodes of phases 4 and 6-15; me_eval's pair
 and one-list modes in rows of their own), the nvidia-smi name/power-limit
 line, and {"ok": true, "device": {...}}.
 
@@ -258,6 +267,12 @@ GRID = dict(ctu_size=16)
 GRID_GOP8 = dict(TOOL_ROW, **GOP8, ctu_size=16)
 GRID_BATCH = dict(ctu_size=16, intra_period=1, frame_batch=2)
 HOST32 = dict(ctu_size=32)
+# phase 15, the batched CTB-64 intra program: (i) -p 1 with frame_batch 2
+# against the same frames unbatched; (ii) the tool row with
+# --pu-depth-intra 1-4 and frame_batch 2
+MD_BATCH = dict(intra_period=1, frame_batch=2)
+MD_BATCH_TOOLS = dict(TOOL_ROW, intra_period=1, pu_depth_intra=(1, 4),
+                      frame_batch=2)
 # NAL unit types (H.265 table 7-1) that phase 9 looks for
 NAL_NAMES = {0: "TRAIL_N", 1: "TRAIL_R", 8: "RASL_N", 9: "RASL_R",
              19: "IDR_W_RADL", 21: "CRA_NUT"}
@@ -1661,6 +1676,104 @@ def phase_grid(torch, me):
     return {k: sum(r[k] for r in runs) for k in li}
 
 
+def encode_batched(torch, cfg, frames, label):
+    """Encode all-intra frames through encode_sequence on cuda with the
+    Config options cfg (CTB 64). Prints the run: the frames' waves and
+    the host-clock ms (synchronized) of each submit call (submit_many:
+    one call a batch) and of each wavefront. Returns (stream, infos, per
+    coded frame every decision map as numpy, the ms by "submit" and
+    "wavefront")."""
+    from kvazaar_tpu_torch.api import Encoder, encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    h, w = frames[0][0].shape
+    frame_cfg = Config(width=w, height=h, **cfg)
+    enc = Encoder(frame_cfg, device="cuda")
+    times: dict = {}
+    wrap_timed(torch, enc._pipeline, {"submit": "submit",
+                                      "submit_many": "submit",
+                                      "_recon_md": "wavefront"}, times)
+    maps = []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        maps.append({k: (v.cpu().numpy() if hasattr(v, "cpu")
+                         else np.asarray(v))
+                     for k, v in enc._last_decisions.items()})
+        return out
+    enc.finalize_frame = record
+    t0 = time.perf_counter()
+    stream, infos = encode_sequence(frame_cfg, frames, encoder=enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{label}: {len(infos)} frames at {w}x{h} in {wall:.3f} s = "
+          f"{len(infos) / wall:.4f} fps, {len(stream)} bytes, PSNR Y "
+          f"{[round(float(i['psnr'][0]), 4) for i in infos]}, waves "
+          f"{[i['n_waves'] for i in infos]}; submit calls ms "
+          f"{[round(x, 1) for x in times['submit']]}, wavefront calls ms "
+          f"{[round(x, 1) for x in times['wavefront']]}", flush=True)
+    return stream, infos, maps, times
+
+
+def phase_batch(torch, me):
+    """The batched CTB-64 intra program: (i) MD_BATCH, 2 frames of
+    mixed_frames at 1080p through one search and one wavefront
+    (MdIntraPipeline.submit_many), then the same frames unbatched
+    (frame_batch 0): the same stream and every map of each frame equal
+    (the waves included), the batched stream hash-exact; (ii)
+    MD_BATCH_TOOLS, 3 frames at 416x240 on cuda and on the CPU (a full
+    batch, then a partial one): the same streams and maps, hash-exact.
+    Returns the kernel launches of (i): all-intra frames launch neither
+    kernel."""
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    t15 = time.perf_counter()
+    twin = worker_pool("cpu").submit(encode_coded, mixed_frames(3, 416, 240),
+                                     416, 240, "cpu", MD_BATCH_TOOLS)
+    frames = mixed_frames(2, W, H)
+    me.me_refine.launches = 0
+    me.me_eval.launches = 0
+    me.me_eval.one_list_launches = 0
+    b_stream, b_infos, b_maps, b_t = encode_batched(
+        torch, MD_BATCH, frames, "ctb 64 frame_batch 2 (i)")
+    s_stream, s_infos, s_maps, s_t = encode_batched(
+        torch, dict(MD_BATCH, frame_batch=0), frames,
+        "ctb 64 unbatched (i)")
+    launches = {"me_refine": me.me_refine.launches,
+                "me_eval": me.me_eval.launches,
+                "me_eval_one_list": me.me_eval.one_list_launches}
+    differ = sorted({k for b, u in zip(b_maps, s_maps) for k in b
+                     if k not in u or not np.array_equal(b[k], u[k])})
+    waves = ([i["n_waves"] for i in b_infos], [i["n_waves"] for i in s_infos])
+    print(f"ctb 64 (i): batched stream equal to the unbatched one "
+          f"{b_stream == s_stream}, differing maps {differ}, waves a frame "
+          f"batched {waves[0]} unbatched {waves[1]}; submit ms batched "
+          f"{b_t['submit'][0]:.1f} (both frames) against unbatched "
+          f"{s_t['submit'][0]:.1f} + {s_t['submit'][1]:.1f} = "
+          f"{sum(s_t['submit']):.1f}; launches {launches}; "
+          f"{time.perf_counter() - t15:.1f} s", flush=True)
+    if b_stream != s_stream or differ or waves[0] != waves[1]:
+        fail("ctb 64 (i): frame_batch changed the stream or a map")
+    if len(b_t["submit"]) != 1 or len(s_t["submit"]) != 2:
+        fail("ctb 64 (i): not one submit call a batch")
+    if any(launches.values()):
+        fail(f"ctb 64 (i): an all-intra encode launched a kernel: "
+             f"{launches}")
+    _DECODES.append(("ctb 64 frame_batch 2 (i)", len(b_infos),
+                     worker_pool("decode").submit(
+                         decode_check, b_stream,
+                         [tuple(np.asarray(a) for a in i["recon_out"])
+                          for i in b_infos], list(range(len(b_infos))))))
+    t = time.perf_counter()
+    stream, rows = compare_devices(mixed_frames(3, 416, 240), 416, 240,
+                                   cpu=twin, **MD_BATCH_TOOLS)
+    parity_rows("ctb 64 frame_batch 2 tool row (ii)", rows, t)
+    pics = HEVCDecoder().decode(stream)
+    if len(pics) != 3 or not all(p.hash_ok for p in pics):
+        fail("ctb 64 (ii): the stream does not decode hash-exactly")
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+    return launches
+
+
 def phase_device_parity(cpu):
     """IDR + 1 B at 1920x1080 on cuda give the CPU path's stream and
     decision maps; cpu: the CPU half's future (encode_coded in the "cpu"
@@ -1711,8 +1824,9 @@ def open_device(torch):
 # wavefronts (launch-bound eager ops), so the phases' host dispatch runs
 # in parallel; each group a process, its phases in order
 CHILD_PHASES = {"presets": "phase_presets", "variants": "phase_variants",
-                "extras": "phase_extras", "grid": "phase_grid"}
-CHILD_GROUPS = (("presets", "grid"), ("variants", "extras"))
+                "extras": "phase_extras", "grid": "phase_grid",
+                "batch": "phase_batch"}
+CHILD_GROUPS = (("presets", "grid", "batch"), ("variants", "extras"))
 _CHILDREN: list = []
 
 

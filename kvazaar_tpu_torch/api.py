@@ -27,7 +27,9 @@ reference routes it:
   picture), field coding (--source-scan-type tff|bff: encode_sequence
   codes each frame as two fields) and tiles (--tiles, --slices tiles:
   every frame intra, tile by tile, or over the CUDA devices for a uniform
-  grid).
+  grid, one batched call a device's block of tiles); through
+  Config.frame_batch, all-intra frames batched through one search and
+  one pass of the wavefront.
 - CTB 16 (--ctu 16, the fixed 16x16 grid pipelines of models/
   intra_pipeline.py and inter_pipeline.py): intra frames, P frames (low
   delay, --ref 1-4, the lp GOP; no generalized B) and the B pyramid on a
@@ -516,11 +518,13 @@ class Encoder:
         return y, cb, cr
 
     def submit_frames(self, frames) -> list[dict]:
-        """Batched all-intra submission on the 16x16 grid: B frames
-        through one pass of the wavefront (IntraPipeline.submit_many) at
-        the configured QP; returns their pending tokens. encode_sequence
-        takes this path with Config.frame_batch > 1 where the reference
-        does (constant QP, no inter frames, no delta QP)."""
+        """Batched all-intra submission: B frames through one search and
+        one pass of the wavefront (the pipeline's submit_many: the 16x16
+        grid's IntraPipeline at CTB 16, MdIntraPipeline at CTB 64) at the
+        configured QP, each coded as an IDR picture; returns their pending
+        tokens. encode_sequence takes this path with Config.frame_batch >
+        1 where the reference does (constant QP, no inter frames, no delta
+        QP, a pipeline with submit_many: not the tiled ones)."""
         cfg = self.cfg
         padded = [self._pad(*f) for f in frames]
         devs = self._pipeline.submit_many([p[0] for p in padded],

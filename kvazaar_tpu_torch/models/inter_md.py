@@ -1293,7 +1293,7 @@ class MdInterPipeline(MdIntraPipeline):
         out.update(size_map8=size_map8.to(torch.int8),
                    mode_map8=mode_map8.to(torch.int8), inter8=inter8,
                    mv8=mv8.to(torch.int16), ref8=ref8.to(torch.int8),
-                   n_waves=n_waves)
+                   n_waves=n_waves[0])
         if part8 is not None:
             out["part8"] = part8.to(torch.int8)
         return out
@@ -1329,7 +1329,7 @@ class MdInterPipeline(MdIntraPipeline):
                    mode_map8=mode_map8.to(torch.int8), inter8=inter8,
                    dir8=dir8.to(torch.int8), mv8=mv8.to(torch.int16),
                    ref8=ref8.to(torch.int8), mv8b=mv8b.to(torch.int16),
-                   ref8b=ref8b.to(torch.int8), n_waves=n_waves)
+                   ref8b=ref8b.to(torch.int8), n_waves=n_waves[0])
         return out
 
     def _stack(self, planes, depth: int):

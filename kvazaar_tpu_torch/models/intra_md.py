@@ -28,6 +28,11 @@ One frame runs three stages on the pipeline's device:
    class row, so the only host sync is the periodic all-written exit
    test.
 
+B pictures of one shape (submit_many: frame_batch's frames, a mesh
+device's block of tiles) run stages 1-3 once for all of them, stacked one
+above another in one tall frame whose picture edges the search and the
+wavefront respect; each picture's waves, maps and tail are its own.
+
 Under delta QP the constants qpmap_y, qpmap_c and lammap carry the QP and
 lambda of each CTB: the search, the split DP and the reconstruction read
 them per block (RDOQ's context-init prices stay at the slice QP), and the
@@ -48,6 +53,8 @@ forms them: its summation orders (_xla_sum, _xla_cumsum) and its fused
 multiply-adds (_fma), so the levels match on the CPU and on the card.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -290,6 +297,9 @@ class MdIntraPipeline:
         # --rd: modes a leaf RD-costs among its best SATDs
         self.rd_cands = max(1, min(int(rd), 3) + 1)
         self.r8, self.c8 = height // 8, width // 8
+        # pictures stacked one above another in the planes (_stacked):
+        # each one's top and bottom rows are picture edges
+        self.n_pics = 1
         self._mode_needs_cache: dict = {}
         self._const_cache: dict = {}
         self.consts = self._consts_for(qp)
@@ -567,20 +577,23 @@ class MdIntraPipeline:
         return pred
 
     def _src_refs(self, src, n: int):
-        """Clamped source refs for every aligned n-block [B, rlen]."""
+        """Clamped source refs for every aligned n-block [B, rlen], each
+        clamped to its own picture's rows."""
         h, w = src.shape
         rows, cols = h // n, w // n
         bid = self._arange(rows * cols)
         y0 = (bid // cols) * n
         x0 = (bid % cols) * n
+        ph = h // self.n_pics
+        top_y = y0 // ph * ph
         ar = self._arange(2 * n)
-        iy = (y0[:, None] + ar[None, :]).clamp(0, h - 1)
+        iy = torch.minimum(y0[:, None] + ar[None, :], top_y[:, None] + ph - 1)
         ix = (x0[:, None] - 1).clamp(0, w - 1)
         left = src[iy, ix.expand_as(iy)]
-        ty = (y0[:, None] - 1).clamp(0, h - 1)
+        ty = torch.maximum(y0 - 1, top_y)[:, None]
         tx = (x0[:, None] + ar[None, :]).clamp(0, w - 1)
         top = src[ty.expand_as(tx), tx]
-        corner = src[(y0 - 1).clamp(0, h - 1), (x0 - 1).clamp(0, w - 1)]
+        corner = src[ty[:, 0], (x0 - 1).clamp(0, w - 1)]
         pad = torch.zeros((rows * cols, 1), dtype=src.dtype,
                           device=self.device)
         return torch.cat([left, corner[:, None], top, pad], dim=1)
@@ -1344,7 +1357,8 @@ class MdIntraPipeline:
 
     def _class_static(self, size_map8, leafz, s: int, mode_map8):
         """Frame-constant per-class scheduling data: leaf mask, z-order
-        below-left/top-right availability (masks and counts) and the
+        below-left/top-right availability (masks and counts), the class
+        rows with a row above them in their picture, and the
         mode-dependent dependency masks."""
         k = s // 8
         rs, cs = self.r8 // k, self.c8 // k
@@ -1352,17 +1366,25 @@ class MdIntraPipeline:
         zt = self.c["m8"][::k, ::k]
         z4 = F.pad(leafz, (0, k, 0, k), value=big) \
             .reshape(rs + 1, k, cs + 1, k)
-        av_bl = z4[1:, :, :cs - 1, k - 1] < zt[:, None, 1:]
-        av_tr = z4[:rs - 1, k - 1, 1:, :] < zt[1:, :, None]
+        # a picture's first class row: nothing above or above-right of it,
+        # nor below-left of the row before it, is available
+        top = self._arange(rs) % (rs // self.n_pics) == 0
+        av_bl = (z4[1:, :, :cs - 1, k - 1] < zt[:, None, 1:]) \
+            & ~F.pad(top[1:], (0, 1))[:, None, None]
+        av_tr = (z4[:rs - 1, k - 1, 1:, :] < zt[1:, :, None]) \
+            & ~top[1:, None, None]
         st = {
             "leaf": size_map8[::k, ::k] == s,
             "av_bl": av_bl,
             "av_tr": av_tr,
             "n_bl": F.pad(av_bl.sum(1), (1, 0)),
             "n_tr": F.pad(av_tr.sum(-1), (0, 0, 1, 0)),
+            "has_top": ~top,
         }
+        if self.n_pics > 1:
+            st["pic_top"] = top[:, None]
         m = mode_map8[::k, ::k].long()
-        row0 = (self._arange(rs) == 0)[:, None]
+        row0 = top[:, None]
         col0 = (self._arange(cs) == 0)[None, :]
         nl, nt, nbl, ntr = (torch.as_tensor(a, device=self.device)
                             for a in self._mode_needs(s))
@@ -1387,6 +1409,10 @@ class MdIntraPipeline:
         cor = F.pad(cor_cells, (1, 0, 1, 0))[:rs, :cs]
         tm_full = row_last.reshape(rs, cs, k).sum(-1)
         tm = F.pad(tm_full, (0, 0, 1, 0))[:rs, :]
+        if "pic_top" in st:
+            # the picture stacked above is no neighbour
+            cor = cor.masked_fill(st["pic_top"], 0)
+            tm = tm.masked_fill(st["pic_top"], 0)
         blv = F.pad(col_last, (0, 0, 0, k))[k:].reshape(rs, k, cs)
         bl_dep = F.pad((st["av_bl"] & (blv[:, :, :cs - 1] > 0)).sum(1),
                        (1, 0))
@@ -1482,7 +1508,7 @@ class MdIntraPipeline:
         r = self._arange(rs)
         c = c_star.long()
         has_left = valid & (c > 0)
-        has_top = valid & (r > 0)
+        has_top = valid & st["has_top"]
         nbl = st["n_bl"][r, c]
         ntr = st["n_tr"][r, c]
         modes = pre["modes"][r, c]
@@ -1584,7 +1610,7 @@ class MdIntraPipeline:
         [r8, c8, 6] zeros tensor to run the transform-skip competition on
         the 4x4 TUs and collect each 8x8 cell's skip bits (the four NxN
         luma sub-TUs in z order, Cb, Cr) into; None runs without it.
-        Returns (luma, chroma, written, n_waves)."""
+        Returns (luma, chroma, written, n_waves [n_pics] int64)."""
         nxn8 = None
         if mode_map4 is not None and self.allow[4]:
             nxn8 = size_map8 == 4
@@ -1621,18 +1647,21 @@ class MdIntraPipeline:
                     [m4[0::2, 0::2], m4[0::2, 1::2], m4[1::2, 0::2],
                      m4[1::2, 1::2]], dim=-1)
             statics[s] = st
-        # every wave fires a TU until the frame is written, so the 8x8
-        # cells bound the waves (the reference stops at 3 * r8 + 2 * c8 +
-        # 64 waves, which NxN-heavy frames need more than: ROADMAP.md
-        # queue 3); a check window without a fire is a stall
-        cap = self.r8 * self.c8
-        n_waves = torch.zeros((), dtype=torch.int64, device=self.device)
+        # every wave fires a TU of a picture until it is written, so its
+        # 8x8 cells bound its waves (the reference stops at 3 * r8 + 2 *
+        # c8 + 64 waves, which NxN-heavy frames need more than: ROADMAP.md
+        # queue 3); a check window in which a picture left unwritten fires
+        # nothing is a stall. Each picture counts its own waves: the last
+        # in which it fired
+        P = self.n_pics
+        cap = self.r8 // P * self.c8
+        n_waves = torch.zeros(P, dtype=torch.int64, device=self.device)
         wave = 0
         done = bool(written.all())
         while not done:
             for _ in range(self.WAVE_CHECK):
                 new_written = written.clone()
-                fired_any = torch.zeros((), dtype=torch.bool,
+                fired_any = torch.zeros(P, dtype=torch.bool,
                                         device=self.device)
                 for s in self.SIZES:
                     k = s // 8
@@ -1646,17 +1675,21 @@ class MdIntraPipeline:
                     fired = ready & (cols[None, :] == c_star[:, None])
                     new_written |= fired[:, None, :, None].expand(
                         rs, k, cs, k).reshape(self.r8, self.c8)
-                    fired_any = fired_any | row_has.any()
+                    fired_any = fired_any | row_has.reshape(P, -1).any(1)
                     self._fire_class(luma, chroma, s, c_star, row_has,
                                      statics[s], pres[s], ts8)
                 written = new_written
                 wave += 1
                 n_waves = torch.where(fired_any, wave, n_waves)
-            done, last = torch.stack([written.all().to(torch.int64),
-                                      n_waves]).tolist()
-            if not done and (wave - last >= self.WAVE_CHECK or wave >= cap):
-                raise RuntimeError(f"the wavefront stalled after {last} "
-                                   "waves with cells left unwritten")
+            pic_done = written.reshape(P, -1).all(1).to(torch.int64)
+            done_p, last = torch.stack([pic_done, n_waves]).tolist()
+            done = all(done_p)
+            for p in range(P):
+                if not done_p[p] and (wave - last[p] >= self.WAVE_CHECK
+                                      or wave >= cap):
+                    raise RuntimeError(
+                        f"the wavefront stalled after {last[p]} waves with "
+                        f"cells of picture {p} left unwritten")
         return luma, chroma, written, n_waves
 
     # ------------------------------------------------------------------
@@ -1736,14 +1769,17 @@ class MdIntraPipeline:
         return ry, rcb, rcr, maps
 
     def _frame_outputs(self, ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr, src_y,
-                       src_cb, src_cr) -> dict:
+                       src_cb, src_cr, masks=None) -> dict:
         """SAO of the deblocked planes (when on), then the final planes
         (the frame's reference picture), levels, the decoded-picture
-        checksum (summed in int64, reduced mod 2^32) and the SSE (int64)."""
+        checksum (summed in int64, reduced mod 2^32) and the SSE (int64).
+        masks: the picture's hash masks (hash_mask_y, hash_mask_c), the
+        pipeline's by default."""
         sao_maps = {}
         if self.sao:
             ry, rcb, rcr, sao_maps = self._sao(src_y, src_cb, src_cr, ry,
                                                rcb, rcr)
+        masks = masks or self.c
 
         def cksum(plane, mask):
             p64 = plane.to(torch.int64)
@@ -1764,41 +1800,84 @@ class MdIntraPipeline:
             "levels_y": lvl_y.to(torch.int16),
             "levels_cb": lvl_cb.to(torch.int16),
             "levels_cr": lvl_cr.to(torch.int16),
-            "hash": torch.stack([cksum(ry, self.c["hash_mask_y"]),
-                                 cksum(rcb, self.c["hash_mask_c"]),
-                                 cksum(rcr, self.c["hash_mask_c"])]),
+            "hash": torch.stack([cksum(ry, masks["hash_mask_y"]),
+                                 cksum(rcb, masks["hash_mask_c"]),
+                                 cksum(rcr, masks["hash_mask_c"])]),
             "sse": torch.stack([sse(ry, src_y), sse(rcb, src_cb),
                                 sse(rcr, src_cr)]),
         }
 
-    def _full_impl(self, src_y_in, src_cb_in, src_cr_in) -> dict:
-        src_y = src_y_in.to(I32)
-        src_cb = src_cb_in.to(I32)
-        src_cr = src_cr_in.to(I32)
-        size_map8, mode_map8, mode_map4 = self._partition(src_y, src_cb,
-                                                          src_cr)
-        ts8 = (torch.zeros((self.r8, self.c8, 6), dtype=torch.int8,
-                           device=self.device) if self.trskip else None)
-        luma, chroma, _, n_waves = self._recon_md(
-            src_y, src_cb, src_cr, size_map8, mode_map8,
-            mode_map4=mode_map4, ts8=ts8)
-        ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(luma,
-                                                                  chroma)
-        fq = (self._final_qp(lvl_y, lvl_cb, lvl_cr) if self.delta_qp
-              else None)
-        if self.deblock:
-            ry, rcb, rcr = self._deblock(ry, rcb, rcr,
-                                         *self._edge_maps(size_map8), fq)
-        out = self._frame_outputs(ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr,
-                                  src_y, src_cb, src_cr)
-        out.update(size_map8=size_map8.to(torch.int8),
-                   mode_map8=mode_map8.to(torch.int8),
-                   mode_map4=mode_map4.to(torch.int8), n_waves=n_waves)
-        if fq is not None:
-            out["qp_ctb"] = fq.to(torch.int8)
-        if ts8 is not None:
-            out["ts8"] = ts8
-        return out
+    @contextlib.contextmanager
+    def _stacked(self, n: int):
+        """Within the block, the pipeline's frame is n pictures of its
+        shape stacked one above another: n times its height, the
+        coding-order key m8 of that frame (each picture's cells after the
+        picture above's, so their z order within a picture is unchanged)
+        and the per-CTB QP maps repeated down it. The search and the
+        wavefront treat each picture's first and last rows as picture
+        edges. The pipeline's own shape and constants come back on exit.
+        """
+        if n == 1:
+            yield
+            return
+        saved = self.h, self.r8, self.n_pics, self.c
+        c = dict(self.c)
+        c["m8"] = torch.from_numpy(_morton(n * self.r8, self.c8)) \
+            .to(self.device)
+        for key in ("qpmap_y", "qpmap_c", "lammap"):
+            if key in c:
+                c[key] = c[key].repeat(n, 1)
+        self.h, self.r8, self.n_pics, self.c = n * self.h, n * self.r8, n, c
+        try:
+            yield
+        finally:
+            self.h, self.r8, self.n_pics, self.c = saved
+
+    def _full_impl(self, srcs, masks=None) -> list[dict]:
+        """The frame program over pictures srcs [(y, cb, cr)] of the
+        pipeline's shape, stacked: one mode search and partition and one
+        wavefront whose every wave holds the ready TUs of all of them,
+        then each picture's tail (final QPs, deblocking, SAO, checksum,
+        SSE) on its own. masks: one dict of hash masks a picture, or None.
+        Returns one output dict a picture."""
+        n = len(srcs)
+        src_y, src_cb, src_cr = (torch.cat([f[i] for f in srcs]).to(I32)
+                                 for i in range(3))
+        with self._stacked(n):
+            size_map8, mode_map8, mode_map4 = self._partition(
+                src_y, src_cb, src_cr)
+            ts8 = (torch.zeros((self.r8, self.c8, 6), dtype=torch.int8,
+                               device=self.device) if self.trskip else None)
+            luma, chroma, _, n_waves = self._recon_md(
+                src_y, src_cb, src_cr, size_map8, mode_map8,
+                mode_map4=mode_map4, ts8=ts8)
+        h, hc, r8 = self.h, self.h // 2, self.r8
+        outs = []
+        for p in range(n):
+            def rows(a, k):
+                return a[p * k:(p + 1) * k]
+            sm8 = rows(size_map8, r8)
+            ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr = self._unpack_planes(
+                luma[:, p * h:], chroma[:, p * hc:])
+            fq = (self._final_qp(lvl_y, lvl_cb, lvl_cr) if self.delta_qp
+                  else None)
+            if self.deblock:
+                ry, rcb, rcr = self._deblock(ry, rcb, rcr,
+                                             *self._edge_maps(sm8), fq)
+            out = self._frame_outputs(
+                ry, rcb, rcr, lvl_y, lvl_cb, lvl_cr, rows(src_y, h),
+                rows(src_cb, hc), rows(src_cr, hc),
+                None if masks is None else masks[p])
+            out.update(size_map8=sm8.to(torch.int8),
+                       mode_map8=rows(mode_map8, r8).to(torch.int8),
+                       mode_map4=rows(mode_map4, 2 * r8).to(torch.int8),
+                       n_waves=n_waves[p])
+            if fq is not None:
+                out["qp_ctb"] = fq.to(torch.int8)
+            if ts8 is not None:
+                out["ts8"] = rows(ts8, r8)
+            outs.append(out)
+        return outs
 
     # ------------------------------------------------------------------
     # host interface
@@ -1816,13 +1895,13 @@ class MdIntraPipeline:
 
     @torch.inference_mode()
     def submit(self, src_y, src_cb, src_cr, qp: int | None = None,
-               consts_extra: dict | None = None, qp_map=None) -> dict:
+               masks: dict | None = None, qp_map=None) -> dict:
         """Run the frame's device work; the result dict holds device
         tensors for materialize. The host waits only for the wavefront's
         periodic exit test. qp_map: the QP of each CTB (delta QP);
-        consts_extra: constants that replace the pipeline's (a tile's
-        hash masks at its offset in the picture), tensors on the
-        pipeline's device."""
+        masks: the picture's hash masks (hash_mask_y, hash_mask_c: a
+        tile's at its offset in the picture), tensors on the pipeline's
+        device, or None for the pipeline's."""
         consts = self._consts_for(qp)
         if qp_map is not None:
             if not self.delta_qp:
@@ -1830,11 +1909,32 @@ class MdIntraPipeline:
             consts = dict(consts)
             consts.update(consts_from_numpy(self.qp_map_arrays(qp_map),
                                             self.device))
-        if consts_extra:
-            consts = {**consts, **consts_extra}
         self.set_consts(consts)
-        return self._full_impl(self._to_dev(src_y), self._to_dev(src_cb),
-                               self._to_dev(src_cr))
+        return self._full_impl([(self._to_dev(src_y), self._to_dev(src_cb),
+                                 self._to_dev(src_cr))],
+                               None if masks is None else [masks])[0]
+
+    @torch.inference_mode()
+    def submit_many(self, ys, cbs, crs, qp: int | None = None,
+                    masks=None) -> list[dict]:
+        """B pictures of the pipeline's shape (all-intra frames, or the
+        tiles of a device's block) through one search and one wavefront
+        at one QP; returns one result dict a picture, each equal to what
+        submit returns for that picture alone. masks: one dict a picture
+        of its hash masks, as submit's masks, or None for the
+        pipeline's. Takes no QP map: under delta_qp every CTB has the
+        frame's QP."""
+        srcs = [tuple(self._to_dev(a) for a in f)
+                for f in zip(ys, cbs, crs, strict=True)]
+        want = [(self.h, self.w)] + [(self.h // 2, self.w // 2)] * 2
+        for f in srcs:
+            if [tuple(a.shape) for a in f] != want:
+                raise ValueError("submit_many takes pictures of the "
+                                 f"pipeline's shape {self.h}x{self.w}")
+        if masks is not None and len(masks) != len(srcs):
+            raise ValueError("submit_many takes one set of masks a picture")
+        self.set_consts(self._consts_for(qp))
+        return self._full_impl(srcs, masks)
 
     def materialize(self, out: dict) -> dict:
         """Pull the decisions the writers read to the host as numpy;

@@ -8,8 +8,8 @@ Runs MeshTiledIntraPipeline over N devices: the CUDA devices present
 (the named one repeated where fewer than N exist), or the CPU N times;
 stdout names them. What it checks, end to end:
   1. the quadtree (CTB 64) tile pipeline runs every device's block of
-     tiles (4x4 tiles of 320x192, 1280x768 in all, for N >= 4; else N x
-     1 tiles of 128x64), more tiles than devices;
+     tiles in one batched call (4x4 tiles of 320x192, 1280x768 in all,
+     for N >= 4; else N x 1 tiles of 128x64), more tiles than devices;
   2. the tiles' outputs stitch into a conformant HEVC stream (tile
      substreams, entry points, the tiles' checksum sums);
   3. the port's decoder reproduces the reconstruction hash-exactly;

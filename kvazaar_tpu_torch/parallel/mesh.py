@@ -7,14 +7,17 @@ as the reference does: src/encoder_state-bitstream.c:545), so a uniform
 grid of R rows x C columns of tiles maps onto an (mr, mc) grid of
 devices with R % mr == C % mc == 0: each device codes its (R/mr) x
 (C/mc) block of tiles with its own MdIntraPipeline (its constants on
-that device), the tiles of a block one after another. Distinct CUDA
-devices run their blocks concurrently, one host thread a device; a
-device listed more than once runs all of its blocks in its one thread.
+that device), the tiles of a block in one batched call
+(MdIntraPipeline.submit_many: one search and one wavefront for the
+block, each tile with its own hash masks, as the reference vmaps its
+per-tile program over the block). Distinct CUDA devices run their
+blocks concurrently, one host thread a device; a device listed more
+than once runs its blocks one after another in its one thread.
 
-Every device runs the same per-tile computation as TiledIntraPipeline
-(parallel/tiled.py), so the stream is byte-identical to the one-device
-tiled stream. Reference parity: kvazaar maps tiles to threads
-(src/encoderstate.c:944-979).
+Each tile's decisions and planes equal those of TiledIntraPipeline
+(parallel/tiled.py), which codes tile by tile, so the stream is
+byte-identical to the one-device tiled stream. Reference parity:
+kvazaar maps tiles to threads (src/encoderstate.c:944-979).
 """
 from __future__ import annotations
 
@@ -88,7 +91,8 @@ class MeshTiledIntraPipeline:
         self.masks = [tile_masks(grid, t, ctb, self.tile_dev[t])
                       for t in range(grid.n_tiles)]
         # each device's tiles in block order (its blocks in mesh order,
-        # row-major within a block)
+        # row-major within a block), kr * kc tiles a block
+        self.block = kr * kc
         self.work: dict[torch.device, list[int]] = {d: [] for d in self.pipes}
         for b, d in enumerate(self.devices):
             i, j = divmod(b, self.mc)
@@ -97,12 +101,17 @@ class MeshTiledIntraPipeline:
                              for c in range(j * kc, (j + 1) * kc)]
 
     def _run_device(self, dev, tids, planes, qp) -> dict:
+        """The device's blocks of tiles, one batched call a block."""
         pipe = self.pipes[dev]
+        outs = {}
         with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
-            return {t: pipe.submit(*tile_planes(self.grid, t, self.ctb,
-                                                *planes),
-                                   qp=qp, consts_extra=self.masks[t])
-                    for t in tids}
+            for b in range(0, len(tids), self.block):
+                blk = tids[b:b + self.block]
+                tiles = [tile_planes(self.grid, t, self.ctb, *planes)
+                         for t in blk]
+                outs.update(zip(blk, pipe.submit_many(
+                    *zip(*tiles), qp=qp, masks=[self.masks[t] for t in blk])))
+        return outs
 
     def submit(self, src_y, src_cb, src_cr, qp: int | None = None,
                qp_map=None) -> list:

@@ -22,7 +22,7 @@ from ..models.intra_md import MdIntraPipeline, _hash_mask, consts_from_numpy
 
 def tile_masks(grid: TileGrid, tid: int, ctb: int, device) -> dict:
     """The hash masks of tile tid at its offset in the picture, as the
-    consts_extra of its pipeline's submit."""
+    masks of its pipeline's submit."""
     x0, y0, tw, th = grid.rect(tid)
     h, w, py, px = th * ctb, tw * ctb, y0 * ctb, x0 * ctb
     return consts_from_numpy(
@@ -124,7 +124,7 @@ class TiledIntraPipeline:
         the tiles' pending results."""
         return [self.pipe_of(tid).submit(
             *tile_planes(self.grid, tid, self.ctb, src_y, src_cb, src_cr),
-            qp=qp, consts_extra=self.masks[tid],
+            qp=qp, masks=self.masks[tid],
             qp_map=tile_qp_map(self.grid, tid, qp_map))
             for tid in range(self.grid.n_tiles)]
 

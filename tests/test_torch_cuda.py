@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (EXTRAS_416, GOP8, GOP_OBA,  # noqa: E402
-                        GRID, GRID_BATCH, GRID_GOP8, INTRA_LEAVES, LCU_OBA, LOWDELAY, OPEN_GOP, P_SMP,
+                        GRID, GRID_BATCH, GRID_GOP8, INTRA_LEAVES, LCU_OBA,
+                        LOWDELAY, MD_BATCH, MD_BATCH_TOOLS, OPEN_GOP, P_SMP,
                         SMOKE_ROI, TOOL_LDB, TOOL_ROW, TRSKIP_FCT, VAQ_ROI,
                         VARIANTS_416, WPP_RC,
                         compare_devices, kernel_errors, kernel_inputs,
@@ -319,3 +320,29 @@ def test_cuda_grid_equals_cpu(name):
     assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
     pics = HEVCDecoder().decode(stream)
     assert len(pics) == n and all(p.hash_ok for p in pics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "tools"])
+def test_cuda_md_batch_equals_cpu(name):
+    """The batched CTB-64 intra program (frame_batch 2 over 3 frames at
+    128x64: a full batch and a partial one), -p 1 with the default tools
+    and the tool row with --pu-depth-intra 1-4, gives the CPU path's
+    stream and maps on the GPU and the unbatched stream, decodes
+    hash-exactly and launches neither kernel."""
+    _need_cuda()
+    from kvazaar_tpu_torch.api import encode_sequence
+    from kvazaar_tpu_torch.cfg import Config
+    from kvazaar_tpu_torch.decoder.decoder import HEVCDecoder
+    cfg = {"default": MD_BATCH, "tools": MD_BATCH_TOOLS}[name]
+    frames = mixed_frames(3, W, H)
+    before = (me.me_refine.launches, me.me_eval.launches)
+    stream, rows = compare_devices(frames, W, H, **cfg)
+    assert (me.me_refine.launches, me.me_eval.launches) == before
+    assert all(r["same_stream"] and not r["differing_maps"] for r in rows)
+    single, _ = encode_sequence(Config(width=W, height=H,
+                                       **dict(cfg, frame_batch=0)), frames,
+                                device="cuda")
+    assert stream == single
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == 3 and all(p.hash_ok for p in pics)

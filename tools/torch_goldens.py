@@ -87,12 +87,18 @@ lossless) at 128x64:
 
 and in tests/data/torch_golden_grid.npz, the 16x16-grid pipelines
 (--ctu 16): per GRID_CONFIGS entry the stream and every coded frame's
-maps (GRID_KEYS) on grid_frames through encode_sequence.
+maps (GRID_KEYS) on grid_frames through encode_sequence;
+
+and in tests/data/torch_golden_batch.npz, the batched CTB-64 intra
+program: per BATCH_CONFIGS entry the stream and every coded frame's maps
+(BATCH_KEYS) through encode_sequence with Config.frame_batch, which runs
+the JAX pipeline's vmapped program (MdIntraPipeline.submit_many), and
+the stream of the same frames with frame_batch 0 (`<name>_single_stream`).
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_goldens.py
-[slice|tools|lowdelay|p|gop|presets|rc|variants|extras|grid] (every file
-when no argument is given); `variants <part> ...` re-runs those parts and
-merges them into the file.
+[slice|tools|lowdelay|p|gop|presets|rc|variants|extras|grid|batch] (every
+file when no argument is given); `variants <part> ...` re-runs those parts
+and merges them into the file.
 """
 from __future__ import annotations
 
@@ -119,6 +125,7 @@ OUT_VARIANTS = os.path.join(ROOT, "tests", "data",
                             "torch_golden_variants.npz")
 OUT_EXTRAS = os.path.join(ROOT, "tests", "data", "torch_golden_extras.npz")
 OUT_GRID = os.path.join(ROOT, "tests", "data", "torch_golden_grid.npz")
+OUT_BATCH = os.path.join(ROOT, "tests", "data", "torch_golden_batch.npz")
 FCT_TABLE = os.path.join(ROOT, "tests", "data", "torch_fct_table.json")
 CQM_FILE = os.path.join(ROOT, "tests", "data", "torch_cqm.txt")
 SAO_KEYS = ("sao_y_typ", "sao_y_cls", "sao_y_offs", "sao_y_pos",
@@ -1599,9 +1606,69 @@ def write_grid_golden(path: str = OUT_GRID) -> None:
     _save(path, data)
 
 
+# the batched CTB-64 intra program. BATCH_CONFIGS: (configuration, width,
+# height, frames) on chip_smoke.py's mixed_frames: "md_batch" -p 1 with
+# frame_batch 2 over 4 frames (two full batches) at 128x64.
+BATCH_KEYS = ("size_map8", "mode_map8", "mode_map4", "levels_y",
+              "levels_cb", "levels_cr", "hash", "rec_y", "rec_cb", "rec_cr",
+              "n_waves")
+BATCH_CONFIGS = {
+    "md_batch": (dict(intra_period=1, frame_batch=2), 128, 64, 4),
+}
+
+
+def batch_frames(name: str) -> list:
+    from chip_smoke import mixed_frames
+    _, w, h, n = BATCH_CONFIGS[name]
+    return mixed_frames(n, w, h)
+
+
+def jax_batch_stream(name: str, frame_batch=None) -> tuple[bytes, list]:
+    """A BATCH_CONFIGS stream of kvazaar_tpu through encode_sequence (with
+    frame_batch in place of the entry's when given); returns (stream, the
+    maps of BATCH_KEYS per coded frame)."""
+    from kvazaar_tpu.api import Encoder, encode_sequence
+    from kvazaar_tpu.cfg import Config
+    kw, w, h, _ = BATCH_CONFIGS[name]
+    if frame_batch is not None:
+        kw = dict(kw, frame_batch=frame_batch)
+    cfg = Config(width=w, height=h, **kw)
+    enc = Encoder(cfg)
+    decs = []
+    finalize = enc.finalize_frame
+
+    def record(meta):
+        out = finalize(meta)
+        decs.append({k: np.asarray(v) for k, v in
+                     enc._last_decisions.items() if k in BATCH_KEYS})
+        return out
+    enc.finalize_frame = record
+    stream, _ = encode_sequence(cfg, batch_frames(name), encoder=enc)
+    return stream, decs
+
+
+def write_batch_golden(path: str = OUT_BATCH) -> None:
+    """Every BATCH_CONFIGS stream, batched and unbatched, in this process;
+    prints whether the two are the same stream."""
+    import time
+    data = {}
+    for name in BATCH_CONFIGS:
+        t = time.perf_counter()
+        stream, decs = jax_batch_stream(name)
+        data.update(_stream_arrays(name + "_", stream, decs))
+        t1 = time.perf_counter()
+        single, _ = jax_batch_stream(name, frame_batch=0)
+        data[name + "_single_stream"] = np.frombuffer(single, np.uint8)
+        print(f"{name}: batched {t1 - t:.1f} s, unbatched "
+              f"{time.perf_counter() - t1:.1f} s; the same stream "
+              f"{stream == single}", flush=True)
+    _save(path, data)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["slice", "tools", "lowdelay", "p", "gop",
-                             "presets", "rc", "variants", "extras", "grid"]
+                             "presets", "rc", "variants", "extras", "grid",
+                             "batch"]
     if which[0] in ("rc", "variants", "extras") and len(which) > 1:
         # python tools/torch_goldens.py rc|variants|extras <part> ...:
         # re-run those parts
@@ -1613,4 +1680,5 @@ if __name__ == "__main__":
          "lowdelay": write_lowdelay_golden, "p": write_p_golden,
          "gop": write_gop_golden, "presets": write_presets_golden,
          "rc": write_rc_golden, "variants": write_variants_golden,
-         "extras": write_extras_golden, "grid": write_grid_golden}[w]()
+         "extras": write_extras_golden, "grid": write_grid_golden,
+         "batch": write_batch_golden}[w]()

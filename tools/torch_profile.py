@@ -23,7 +23,12 @@ WAVE_STEPS steps of a second encode of the frame (the step is the same
 ops on every step, masked over the class rows). With --wave medium the
 two runs are the tool row and the intra frame of --preset medium at QP
 27, which is the tool row with NxN 4x4 leaves (--pu-depth-intra 1-4), in
-turns (tool row, medium, medium, tool row).
+turns (tool row, medium, medium, tool row). With --wave batch the two
+runs code two 1080p IDR frames at QP 22 (the default tools, -p 1): one
+frame a MdIntraPipeline.submit call, and both in one submit_many call
+(one search and one wavefront, as frame_batch 2 codes them), in turns
+(unbatched, batched, batched, unbatched); the steps profiled are those
+of the first frame's wavefront, or of the batch's.
 
 With --recon it times the stages of IDR + 2 B frames at 1080p and QP 27
 with the default tools and with SAO full + RDOQ + sign hiding
@@ -51,7 +56,8 @@ ms and host wall ms.
 
 Usage (on a machine with a GPU):
     python3 tools/torch_profile.py [frames] [--leaf]
-    python3 tools/torch_profile.py --wave [medium] | --recon | --p | --grid
+    python3 tools/torch_profile.py --wave [medium | batch] | --recon | --p
+    python3 tools/torch_profile.py --grid
 """
 from __future__ import annotations
 
@@ -165,12 +171,50 @@ def main(n_frames: int = 3, leaf_only: bool = False) -> None:
 WAVE_STEPS = 24
 
 
+def profile_steps(pipe, run) -> None:
+    """Run run() with the first WAVE_STEPS wave steps of pipe's wavefront
+    under torch.profiler; print their kernel launches and kernel-busy ms
+    a step, the host wall ms and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    ready = pipe._class_ready
+    calls = [0]
+    state = {"t": 0.0}
+
+    def counted(*a, **kw):
+        if calls[0] == 0:
+            torch.cuda.synchronize()
+            prof.start()
+            state["t"] = time.perf_counter()
+        if calls[0] == WAVE_STEPS * len(pipe.SIZES):
+            torch.cuda.synchronize()
+            state["t"] = time.perf_counter() - state["t"]
+            prof.stop()
+        calls[0] += 1
+        return ready(*a, **kw)
+    pipe._class_ready = counted
+    run()
+    pipe._class_ready = ready
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    launches = sum(e.count for e in ev)
+    print(f"  {WAVE_STEPS} profiled wave steps: {launches} kernel "
+          f"launches = {launches / WAVE_STEPS:.1f} a step, kernels "
+          f"busy {busy:.3f} ms = {busy / WAVE_STEPS:.4f} ms a step, "
+          f"host wall {state['t'] * 1e3:.1f} ms profiled", flush=True)
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:7d}  {e.key[:80]}", flush=True)
+
+
 def wave_profile(other: str = "default") -> None:
     """The tool row's IDR against `other`'s: "default" (no tools) or
     "medium" (--preset medium's intra frame at QP 27)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from chip_smoke import TOOL_ROW, mixed_frames, smi, wrap_timed
     from kvazaar_tpu_torch.api import Encoder
     from kvazaar_tpu_torch.cfg import PRESETS, Config
@@ -203,37 +247,46 @@ def wave_profile(other: str = "default") -> None:
               f"({wave_ms / steps:.2f} ms a step), SAO "
               f"{times.get('_sao', [0.0])[0]:.2f} ms", flush=True)
         # profile the first WAVE_STEPS steps of a second encode
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        ready = pipe._class_ready
-        calls = [0]
-        state = {"t": 0.0}
+        profile_steps(pipe, lambda: enc.encode_frame(*frame))
 
-        def counted(*a, **kw):
-            if calls[0] == 0:
-                torch.cuda.synchronize()
-                prof.start()
-                state["t"] = time.perf_counter()
-            if calls[0] == WAVE_STEPS * len(pipe.SIZES):
-                torch.cuda.synchronize()
-                state["t"] = time.perf_counter() - state["t"]
-                prof.stop()
-            calls[0] += 1
-            return ready(*a, **kw)
-        pipe._class_ready = counted
-        enc.encode_frame(*frame)
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in ev) / 1e3
-        launches = sum(e.count for e in ev)
-        print(f"  {WAVE_STEPS} profiled wave steps: {launches} kernel "
-              f"launches = {launches / WAVE_STEPS:.1f} a step, kernels "
-              f"busy {busy:.3f} ms = {busy / WAVE_STEPS:.4f} ms a step, "
-              f"host wall {state['t'] * 1e3:.1f} ms profiled", flush=True)
-        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:7d}  {e.key[:80]}", flush=True)
+
+def wave_batch_profile(n: int = 2) -> None:
+    """--wave batch: n 1080p IDR frames at QP 22 one submit call a frame
+    against one submit_many call for all of them, in turns."""
+    import torch
+    from chip_smoke import mixed_frames, smi, wrap_timed
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.cfg import Config
+    w, h = 1920, 1080
+    cfg = Config(width=w, height=h, qp=22, intra_period=1)
+    enc = Encoder(cfg)
+    frames = [enc._pad(*f) for f in mixed_frames(n, w, h)]
+    enc._pipeline.submit(*frames[0])              # warm-up, not counted
+    torch.cuda.synchronize()
+    print(smi("name,power.limit"), flush=True)
+    for label in ("unbatched", "batched", "batched", "unbatched"):
+        pipe = Encoder(cfg)._pipeline
+
+        def run():
+            if label == "batched":
+                return pipe.submit_many(*zip(*frames))
+            return [pipe.submit(*f) for f in frames]
+        times: dict = {}
+        wrap_timed(torch, pipe, {"submit": "submit",
+                                 "submit_many": "submit",
+                                 "_recon_md": "wavefront"}, times)
+        waves = [int(o["n_waves"]) for o in run()]
+        steps = [-(-v // pipe.WAVE_CHECK) * pipe.WAVE_CHECK for v in
+                 ([max(waves)] if label == "batched" else waves)]
+        sub = sum(times["submit"])
+        print(f"{label}: {n} IDR frames, waves {waves} ({steps} wave steps);"
+              f" submit calls ms {[round(x, 1) for x in times['submit']]} "
+              f"= {sub:.1f} ms, {n / sub * 1e3:.4f} fps; wavefront calls ms "
+              f"{[round(x, 1) for x in times['wavefront']]} ("
+              f"{sum(times['wavefront']) / sum(steps):.2f} ms a step)",
+              flush=True)
+        # profile the first WAVE_STEPS steps of a second run
+        profile_steps(pipe, run)
 
 
 def grid_profile(w: int = 1920, h: int = 1080) -> None:
@@ -412,6 +465,8 @@ def p_profile() -> None:
 if __name__ == "__main__":
     if "--p" in sys.argv[1:]:
         p_profile()
+    elif "--wave" in sys.argv[1:] and "batch" in sys.argv[1:]:
+        wave_batch_profile()
     elif "--wave" in sys.argv[1:]:
         wave_profile("medium" if "medium" in sys.argv[1:] else "default")
     elif "--grid" in sys.argv[1:]:
